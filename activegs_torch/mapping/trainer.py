@@ -1,0 +1,280 @@
+"""Per-keyframe training + post-processing for the Gaussian-surfel map
+(port of `activegs_tpu/mapping/trainer.py`, single-device path).
+
+Each keyframe draws one view batch (`draw_batch`), bins each view once
+(frozen bins, optionally on the view's compacted in-view subset), and runs
+`optimization_steps` of render -> 4-term loss -> Adam with a fresh
+optimizer. `post_process` stats-renders keyframes for the Welford
+confidence update and the periodic prune.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.image_ops import depth_to_normal
+from ..render import binning as rb
+from ..render import preprocess as rp
+from ..render.renderer import (
+    compact_in_view,
+    pack_attrs,
+    prepare_view_bins,
+    render_stats,
+    render_view,
+    subset_view,
+)
+from ..render.types import Camera, RasterConfig
+from . import gaussians as gm
+from . import keyframes as kf
+from . import losses
+
+PARAM_FIELDS = ("means", "scales_raw", "rotations_raw", "opacities_raw", "colors")
+_LR = {
+    "means": "mean_lr",
+    "scales_raw": "scale_lr",
+    "rotations_raw": "rotation_lr",
+    "opacities_raw": "opacity_lr",
+    "colors": "harmonic_lr",
+}
+
+
+def make_optimizer(params: dict, cfg: gm.MapConfig) -> torch.optim.Adam:
+    """Adam(eps=1e-15) with the reference's per-group learning rates — the
+    same update as optax scale_by_adam -> per-group lr -> scale(-1)."""
+    groups = [{"params": [params[k]], "lr": getattr(cfg, _LR[k])} for k in PARAM_FIELDS]
+    return torch.optim.Adam(groups, eps=1e-15)
+
+
+def _view_loss(o, rgb_gt, depth_gt, intrinsic):
+    """(loss_v, err_v) for one view: loss_v = rgb + 0.8 depth + 0.1
+    consistency + 0.1 normal-TV, err_v = rgb + depth (the sampler's error),
+    with the pixel terms folded into two reductions."""
+    h, w = rgb_gt.shape[-2:]
+    mask_vis = o.opacity.detach() > 1e-3
+    mask_depth = depth_gt > 0.0
+    rgb_px = torch.sum(losses.l1_masked(o.rgb, rgb_gt, mask_vis), dim=0) / 3.0
+    depth_px = losses.l1_masked(o.depth, depth_gt, mask_depth)[0]
+    d2n = depth_to_normal(o.depth[0], mask_vis[0], intrinsic).permute(2, 0, 1)
+    cons_px = losses.consistency_loss(o.normal[None], d2n[None])[0] * mask_vis[0]
+    tv = losses.normal_tv_loss(o.normal[None], o.depth.detach()[None], mask_depth[None])
+    inv_px = 1.0 / (h * w)
+    loss_v = (
+        torch.sum(rgb_px + losses.W_DEPTH * depth_px + losses.W_CONS * cons_px) * inv_px
+        + losses.W_TV * tv
+    )
+    err_v = torch.sum(rgb_px + depth_px) * inv_px
+    return loss_v, err_v
+
+
+def batch_loss(
+    params: dict,
+    state: gm.GaussianMapState,
+    batch: tuple,
+    counts: torch.Tensor,
+    cfg: gm.MapConfig,
+    raster_cfg: RasterConfig,
+    bins: list | None = None,
+    subsets: list | None = None,
+):
+    """4-term mapping loss over a view batch: the per-view losses weighted
+    by `counts` (V,), the times each view was drawn, over their total, i.e.
+    the mean over the drawn batch. `bins` are per-view frozen `BinResult`s;
+    `subsets` per-view (sel, sel_valid, inv) compactions the bins were built
+    on. Returns (loss, per_frame_error detached)."""
+    rgb_gt, depth_gt, extrinsics, intrinsics = batch
+    v, _, h, w = rgb_gt.shape
+    attrs = gm.attrs_of(dataclasses.replace(state, **params), cfg)
+    packed = pack_attrs(attrs) if subsets is not None else None
+    background = torch.tensor(cfg.background, dtype=torch.float32, device=rgb_gt.device)
+    loss_t, err_t = [], []
+    for i in range(v):
+        attrs_v = attrs if subsets is None else subset_view(packed, subsets[i])
+        o, _ = render_view(
+            attrs_v,
+            Camera(extrinsic=extrinsics[i], intrinsic=intrinsics[i]),
+            (h, w),
+            raster_cfg,
+            background=background,
+            bin_result=None if bins is None else bins[i],
+        )
+        lv, ev = _view_loss(o, rgb_gt[i], depth_gt[i], intrinsics[i])
+        loss_t.append(lv)
+        err_t.append(ev)
+    w = counts.to(torch.float32)
+    return torch.sum(torch.stack(loss_t) * w) / torch.sum(w), torch.stack(err_t).detach()
+
+
+def batch_views(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A drawn batch (V,) as (its distinct frames, the times each was
+    drawn). While the buffer holds fewer keyframes than the batch, the
+    sampler repeats frames: each distinct frame then renders once and
+    weighs its count in `batch_loss`, the same mean as rendering every
+    copy."""
+    return torch.unique(ids, return_counts=True)
+
+
+def draw_batch(
+    buf: kf.KeyframeBuffer, cfg: gm.MapConfig, generator: torch.Generator, sampler: str = "weighted"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keyframe's view batch (chronological ranks), drawn once, as
+    `batch_views`."""
+    sample = kf.sample_weighted if sampler == "weighted" else kf.sample_uniform
+    return batch_views(sample(buf, generator, cfg.batch_size, cfg.active_size))
+
+
+@torch.no_grad()
+def keyframe_view_stats(state, buf, ids, cfg: gm.MapConfig, raster_cfg: RasterConfig):
+    """(max in-view count, max binned entry count) over the batch `ids` —
+    read on the host to pick the subset bucket and the entry budget."""
+    _, _, exts, intrs = kf.decode_frames(buf, ids)
+    h, w = buf.rgb.shape[-2:]
+    attrs0 = gm.attrs_of(state, cfg)
+    ivs, ents = [], []
+    for ext, intr in zip(exts, intrs):
+        p2d, _, _, iv = rp.preprocess(attrs0, Camera(ext, intr), (h, w), raster_cfg)
+        ivs.append(iv.sum())
+        ents.append(rb.entry_count(p2d, iv, (h, w), raster_cfg))
+    return int(torch.stack(ivs).max()), int(torch.stack(ents).max())
+
+
+def _half_step_bucket(need: int, min_bucket: int) -> int:
+    """Smallest bucket >= need on the {p2, 1.5 * p2} ladder."""
+    if min_bucket & (min_bucket - 1):
+        raise ValueError("min_bucket must be a power of two")
+    b = min_bucket
+    while b < need:
+        if b + b // 2 >= need:
+            return b + b // 2
+        b *= 2
+    return b
+
+
+def pick_subset_bucket(max_count: int, capacity: int, min_bucket: int = 8192) -> int | None:
+    """Per-view subset bucket, or None when compaction would not shrink the
+    problem (bucket ~ capacity)."""
+    b = _half_step_bucket(max_count, min_bucket)
+    return None if b * 2 > capacity else b
+
+
+def pick_entry_bucket(max_entries: int, min_bucket: int = 16384) -> int:
+    """Entry budget covering the measured per-view binned entry count."""
+    return _half_step_bucket(max_entries, min_bucket)
+
+
+@torch.no_grad()
+def prepare_views(state, batch, cfg: gm.MapConfig, raster_cfg: RasterConfig, subset_bucket=None, entry_budget=None):
+    """Frozen per-view bins (and subsets when `subset_bucket` is set) for
+    the keyframe's batch, from the state before its first step."""
+    _, _, exts, intrs = batch
+    h, w = batch[0].shape[-2:]
+    attrs0 = gm.attrs_of(state, cfg)
+    packed0 = pack_attrs(attrs0) if subset_bucket is not None else None
+    bins = []
+    subsets = [] if subset_bucket is not None else None
+    for ext, intr in zip(exts, intrs):
+        cam = Camera(ext, intr)
+        attrs_v = attrs0
+        if subset_bucket is not None:
+            _, _, _, iv = rp.preprocess(attrs0, cam, (h, w), raster_cfg)
+            sel, selv, inv, _ = compact_in_view(iv, subset_bucket)
+            subsets.append((sel, selv, inv))
+            attrs_v = subset_view(packed0, subsets[-1])
+        bins.append(prepare_view_bins(attrs_v, cam, (h, w), raster_cfg, entry_budget=entry_budget))
+    return bins, subsets
+
+
+def train_keyframe(
+    state: gm.GaussianMapState,
+    buf: kf.KeyframeBuffer,
+    views: tuple[torch.Tensor, torch.Tensor],
+    cfg: gm.MapConfig,
+    raster_cfg: RasterConfig,
+    steps: int | None = None,
+    subset_bucket: int | None = None,
+    entry_budget: int | None = None,
+):
+    """Per-keyframe optimization on the batch `views` = (ids, counts), from
+    `draw_batch`: fresh Adam, `steps` iterations of render -> loss -> update
+    with the view bins frozen at the first step. Returns (state, buf, last
+    loss, aux) with aux num_dropped / num_entries summed over the drawn
+    batch (each view times its count); the sampler performance of the batch
+    frames is updated in place."""
+    steps = cfg.optimization_steps if steps is None else steps
+    ids, counts = views
+    batch = kf.decode_frames(buf, ids)
+    bins, subsets = prepare_views(state, batch, cfg, raster_cfg, subset_bucket, entry_budget)
+    params = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in PARAM_FIELDS}
+    opt = make_optimizer(params, cfg)
+    last_loss = torch.zeros((), device=state.means.device)
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg, bins, subsets)
+        loss.backward()
+        opt.step()
+        kf.update_performance(buf, ids, per_frame)
+        last_loss = loss.detach()
+    new_state = dataclasses.replace(state, **{k: p.detach() for k, p in params.items()})
+    aux = {
+        "num_dropped": torch.sum(torch.stack([b.num_dropped for b in bins]) * counts),
+        "num_entries": torch.sum(torch.stack([b.tile_len.sum() for b in bins]) * counts),
+    }
+    return new_state, buf, last_loss, aux
+
+
+@torch.no_grad()
+def stats_view_budgets(state, buf: kf.KeyframeBuffer, cfg: gm.MapConfig, raster_cfg: RasterConfig, require_prune: bool):
+    """(max front-facing in-view count, max binned entry count) over the
+    keyframes `post_process` will stats-render (the latest, or all of them
+    on prune keyframes)."""
+    h, w = buf.rgb.shape[-2:]
+    attrs0 = gm.attrs_of(state, cfg)
+    frames = range(buf.count) if require_prune else [max(buf.count - 1, 0)]
+    ivs, ents = [], []
+    for i in frames:
+        cam = Camera(buf.extrinsics[i], buf.intrinsics[i])
+        p2d, _, _, iv = rp.preprocess(attrs0, cam, (h, w), raster_cfg, front_only=True)
+        ivs.append(iv.sum())
+        ents.append(rb.entry_count(p2d, iv, (h, w), raster_cfg))
+    return int(torch.stack(ivs).max()), int(torch.stack(ents).max())
+
+
+@torch.no_grad()
+def post_process(
+    state: gm.GaussianMapState,
+    buf: kf.KeyframeBuffer,
+    depth_far,
+    cfg: gm.MapConfig,
+    raster_cfg: RasterConfig,
+    require_prune: bool,
+    stats_bucket: int | None = None,
+    stats_entry_budget: int | None = None,
+):
+    """Confidence statistics + periodic pruning: stats-render the latest
+    keyframe (front-only, render mask depth > 0), update the Welford view
+    statistics; with `require_prune`, accumulate visibility over all
+    keyframes and prune never-visible or transparent gaussians. Returns
+    (state, n_pruned)."""
+    attrs = gm.attrs_of(state, cfg)
+    h, w = buf.rgb.shape[-2:]
+    latest = max(buf.count - 1, 0)
+
+    def stats_for(i):
+        _, depth, ext, intr = kf.decode_frames(buf, torch.tensor([i], device=buf.order.device))
+        return render_stats(
+            attrs, Camera(ext[0], intr[0]), (h, w), raster_cfg,
+            render_mask=(depth[0, 0] > 0.0).to(torch.float32), front_only=True,
+            subset_bucket=stats_bucket, entry_budget=stats_entry_budget,
+        )
+
+    _, cnt_latest = stats_for(latest)
+    cam_pos = buf.extrinsics[latest][:3, 3]
+    state = gm.update_confidence(state, cfg, cam_pos, depth_far, cnt_latest)
+    n_pruned = 0
+    if require_prune:
+        vis_any = torch.zeros(state.capacity, dtype=torch.bool, device=state.means.device)
+        for i in range(buf.count):
+            vis_any |= stats_for(i)[1] >= 1
+        state, n_pruned = gm.prune(state, cfg, vis_any)
+    return state, n_pruned

@@ -1,0 +1,342 @@
+"""Tile compositor: the three hand-written CUDA kernels of `csrc/`, their
+plain PyTorch versions, and the autograd function around fwd/bwd (port of
+`activegs_tpu/render/composite_pallas.py`).
+
+Layouts (shared by kernels and plain versions):
+  entries   (PARAM_DIM, E) f32, per-tile K-aligned depth-sorted segments
+            [tile_start, tile_start + tile_len); pad entries are zero rows;
+  fwd out   (T, OUT_ROWS, P) f32, rows [r g b nx ny nz depth conf T stop 0..];
+  bwd out   (PARAM_DIM, E) f32 per-entry gradients;
+  stats out importance and count, each (1, E) f32.
+
+A tile composites front to back in chunks of K entries and stops, for the
+whole tile, once every pixel's transmittance is <= term_eps (checked only
+between chunks); row `O_STOP` records the chunks done, which the backward
+and stats replays depend on.
+
+Each wrapper takes the plain version only for a CPU tensor. For a CUDA
+tensor it launches its kernel (counted in `<kernel>.launches`) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from . import preprocess as pp
+from .types import O_CONF, O_DEPTH, O_STOP, O_TRANS, OUT_ROWS, PARAM_DIM, USED_ROWS, RasterConfig
+
+
+class CudaKernel:
+    """One kernel of `csrc/`, built and bound through ctypes at first launch.
+    `launches` counts the launches made through `launch`, and nothing else."""
+
+    def __init__(self, source: str, argtypes: list):
+        self.source = source
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._errstr = None
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            lib = _build.load(self.source)
+            fn = getattr(lib, f"{self.source}_launch")
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.source}_errstr")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._errstr = fn, err
+        code = self._fn(*args)
+        if code != 0:
+            raise RuntimeError(
+                f"{self.source}: CUDA error {code} ({self._errstr(code).decode()})"
+            )
+        self.launches += 1
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# common tail: ntx, tile_w, tile_h, K, alpha_cut, alpha_max, term_eps,
+# depth_lo, depth_hi, stream
+_TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
+fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I] + _TAIL)
+bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _I] + _TAIL)
+stats_kernel = CudaKernel("composite_stats", [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL)
+KERNELS = (fwd_kernel, bwd_kernel, stats_kernel)
+
+
+def _tail(ntx: int, cfg: RasterConfig, device) -> list:
+    return [
+        ntx, cfg.tile_w, cfg.tile_h, cfg.chunk, cfg.alpha_cut, cfg.alpha_max,
+        cfg.term_eps, cfg.depth_lo, cfg.depth_hi,
+        torch.cuda.current_stream(device).cuda_stream,
+    ]
+
+
+def _check(entries, tile_start, tile_len, cfg: RasterConfig, **tensors) -> tuple[int, int]:
+    """Validate the kernels' inputs; returns (E, T)."""
+    if entries.device.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {entries.device}")
+    p = cfg.tile_pixels
+    if p % 32 or p > 512:
+        raise ValueError(f"tile of {p} pixels: kernels need a multiple of 32, at most 512")
+    if entries.dtype != torch.float32 or entries.dim() != 2 or entries.shape[0] != PARAM_DIM:
+        raise ValueError(f"entries must be float32 ({PARAM_DIM}, E), got {entries.dtype} {tuple(entries.shape)}")
+    e = entries.shape[1]
+    if e % cfg.chunk:
+        raise ValueError(f"entry count {e} is not a multiple of the chunk {cfg.chunk}")
+    t = tile_start.shape[0]
+    for name, x in (("tile_start", tile_start), ("tile_len", tile_len)):
+        if x.dtype != torch.int32 or x.shape != (t,):
+            raise ValueError(f"{name} must be int32 ({t},), got {x.dtype} {tuple(x.shape)}")
+    shapes = {"out_fwd": (t, OUT_ROWS, p), "gout": (t, OUT_ROWS, p), "mask": (t, p)}
+    for name, x in tensors.items():
+        if x.dtype != torch.float32 or tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{name} must be float32 {shapes[name]}, got {x.dtype} {tuple(x.shape)}")
+    for x in (entries, tile_start, tile_len, *tensors.values()):
+        if x.device != entries.device:
+            raise ValueError("all inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    return e, t
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions, vectorized over (tiles, K entries, P pixels)
+# --------------------------------------------------------------------------
+
+
+def tile_pixel_coords(num_tiles: int, ntx: int, cfg: RasterConfig, device):
+    """Pixel-center coordinates (T, 1, P) of every tile."""
+    t = torch.arange(num_tiles, device=device)[:, None]
+    pix = torch.arange(cfg.tile_pixels, device=device)[None, :]
+    px = ((t % ntx) * cfg.tile_w + pix % cfg.tile_w).to(torch.float32) + 0.5
+    py = ((t // ntx) * cfg.tile_h + pix // cfg.tile_w).to(torch.float32) + 0.5
+    return px[:, None, :], py[:, None, :]
+
+
+def _chunk(entries, tile_start, tile_len, tiles, chunk_idx, k: int, cut: bool = True):
+    """Entry rows (A, n, USED_ROWS) and indices (A, n) of chunk `chunk_idx`
+    (A,) of the tiles `tiles` (A,). With `cut`, n is the most real entries
+    any of these tiles has in its chunk, not K: the entries past a tile's
+    length are zero pad rows, which composite to alpha = 0 and add exactly
+    nothing (and get zero gradients)."""
+    first = tile_start[tiles].to(torch.int64) + chunk_idx * k
+    n = k
+    if cut:
+        n = int(torch.clamp(tile_len[tiles].to(torch.int64) - chunk_idx * k, max=k).max())
+    idx = first[:, None] + torch.arange(n, device=entries.device)
+    return entries[:USED_ROWS, idx].permute(1, 2, 0), idx
+
+
+def _feats(e):
+    """(A, n, 7) composited features: colors, normals, confidence."""
+    return torch.cat([e[..., 6:12], e[..., 16:17]], dim=-1)
+
+
+def _excl_total(alpha):
+    one_m = 1.0 - alpha
+    cum = torch.cumprod(one_m, dim=1)
+    excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    return one_m, excl, cum[:, -1:]
+
+
+def _live_tiles(c: int, nch, trans, cfg: RasterConfig):
+    """Tiles that composite chunk c: c < nch and not yet stopped."""
+    return torch.nonzero((c < nch) & (trans.amax(dim=(1, 2)) > cfg.term_eps)).squeeze(1)
+
+
+def composite_fwd_plain(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
+    t_n, k = tile_start.shape[0], cfg.chunk
+    dev = entries.device
+    px, py = tile_pixel_coords(t_n, ntx, cfg, dev)
+    nch = (tile_len.to(torch.int64) + k - 1) // k
+    trans = torch.ones((t_n, 1, cfg.tile_pixels), device=dev)
+    acc = torch.zeros((t_n, 8, cfg.tile_pixels), device=dev)
+    done = torch.zeros(t_n, dtype=torch.int64, device=dev)
+    for c in range(int(nch.max()) if t_n else 0):
+        act = _live_tiles(c, nch, trans, cfg)
+        if act.numel() == 0:
+            break
+        e, _ = _chunk(entries, tile_start, tile_len, act, c, k)
+        alpha, tdep = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
+        _, excl, total = _excl_total(alpha)
+        wgt = alpha * excl * trans[act]
+        ch = torch.bmm(_feats(e).transpose(1, 2), wgt)  # (A, 7, P)
+        dsum = torch.sum(wgt * tdep, dim=1, keepdim=True)
+        acc[act] = acc[act] + torch.cat([ch, dsum], dim=1)
+        trans[act] = trans[act] * total
+        done[act] += 1
+    stop = done.to(torch.float32)[:, None, None].expand_as(trans)
+    zeros = torch.zeros((t_n, OUT_ROWS - 10, cfg.tile_pixels), device=dev)
+    return torch.cat([acc[:, 0:6], acc[:, 7:8], acc[:, 6:7], trans, stop, zeros], dim=1)
+
+
+def composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: RasterConfig):
+    t_n, k = tile_start.shape[0], cfg.chunk
+    dev = entries.device
+    px, py = tile_pixel_coords(t_n, ntx, cfg, dev)
+    stop = out_fwd[:, O_STOP, 0].to(torch.int64)
+    g_feat = torch.cat([gout[:, 0:6], gout[:, O_CONF : O_CONF + 1]], dim=1)  # (T, 7, P)
+    g_depth = gout[:, O_DEPTH : O_DEPTH + 1]
+    t_final = out_fwd[:, O_TRANS : O_TRANS + 1]
+    gtf = gout[:, O_TRANS : O_TRANS + 1] * t_final
+    t_after = t_final.clone()
+    s_q = torch.zeros_like(t_final)
+    dentries = torch.zeros_like(entries)
+    for r in range(int(stop.max()) if t_n else 0):
+        ci = stop - 1 - r
+        act = torch.nonzero(ci >= 0).squeeze(1)
+        e, idx = _chunk(entries, tile_start, tile_len, act, ci[act], k)
+        cols = pp.entry_cols(e)
+        pxa, pya, gfa, gda = px[act], py[act], g_feat[act], g_depth[act]
+        terms = pp.eval_pair_terms_bwd(cols, pxa, pya, cfg)
+        alpha = terms["alpha"]
+        one_m, excl, total = _excl_total(alpha)
+        t_before = t_after[act] / torch.clamp(total, min=1e-30)
+        t_k = t_before * excl
+        wgt = alpha * t_k
+        q = torch.bmm(_feats(e), gfa) + terms["t"] * gda  # (A, n, P)
+        wq = wgt * q
+        tot_wq = torch.sum(wq, dim=1, keepdim=True)
+        suffix = s_q[act] + (tot_wq - torch.cumsum(wq, dim=1))  # entries after k
+        dalpha = t_k * q - (suffix + gtf[act]) * (1.0 / torch.clamp(one_m, min=0.01))
+        dalpha = torch.where((alpha > 0.0) & (alpha < cfg.alpha_max), dalpha, 0.0)
+
+        dx, dy = terms["dx"], terms["dy"]
+        dpow = dalpha * alpha
+        t1 = dpow * dx
+        t2 = dpow * dy
+        s_x, s_y = t1.sum(-1), t2.sum(-1)
+        s_xx, s_xy, s_yy = (t1 * dx).sum(-1), (t1 * dy).sum(-1), (t2 * dy).sum(-1)
+        ca, cb, cc = cols["ca"][..., 0], cols["cb"][..., 0], cols["cc"][..., 0]
+        dfeat = torch.bmm(wgt, gfa.transpose(1, 2))  # (A, n, 7)
+        wgd = wgt * gda
+        inside = terms["inside"]
+        com = torch.where(inside, wgd * terms["inv_denom"], 0.0)
+        u = com * terms["t_raw"]
+        ddz = torch.where(inside, 0.0, wgd * terms["t"]).sum(-1) / torch.clamp(
+            cols["dz"][..., 0], min=1e-30
+        )
+        dcols = torch.stack(
+            [
+                ca * s_x + cb * s_y,
+                cb * s_x + cc * s_y,
+                -0.5 * s_xx,
+                -s_xy,
+                -0.5 * s_yy,
+                (dalpha * terms["ex"]).sum(-1),
+                *dfeat[..., 0:6].unbind(-1),
+                -(u * pxa).sum(-1),
+                -(u * pya).sum(-1),
+                -u.sum(-1),
+                com.sum(-1),
+                dfeat[..., 6],
+                ddz,
+            ],
+            dim=-1,
+        )  # (A, n, 18)
+        dentries[:USED_ROWS, idx.reshape(-1)] = dcols.reshape(-1, USED_ROWS).T
+        t_after[act] = t_before
+        s_q[act] = s_q[act] + tot_wq
+    return dentries
+
+
+def composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres: float, ntx: int, cfg: RasterConfig):
+    t_n, k = tile_start.shape[0], cfg.chunk
+    dev = entries.device
+    px, py = tile_pixel_coords(t_n, ntx, cfg, dev)
+    nch = (tile_len.to(torch.int64) + k - 1) // k
+    trans = torch.ones((t_n, 1, cfg.tile_pixels), device=dev)
+    imp = torch.zeros((1, entries.shape[1]), device=dev)
+    cnt = torch.zeros((1, entries.shape[1]), device=dev)
+    m = mask[:, None, :]
+    for c in range(int(nch.max()) if t_n else 0):
+        act = _live_tiles(c, nch, trans, cfg)
+        if act.numel() == 0:
+            break
+        # a threshold <= 0 counts the zero weights of pad entries too
+        e, idx = _chunk(entries, tile_start, tile_len, act, c, k, cut=weight_thres > 0)
+        alpha, _ = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
+        _, excl, total = _excl_total(alpha)
+        wm = alpha * excl * trans[act] * m[act]
+        imp[0, idx.reshape(-1)] = wm.sum(-1).reshape(-1)
+        cnt[0, idx.reshape(-1)] = (wm >= weight_thres).to(torch.float32).sum(-1).reshape(-1)
+        trans[act] = trans[act] * total
+    return imp, cnt
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+
+def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
+    """Forward composite -> (T, OUT_ROWS, P). Kernel: csrc/composite_fwd.cu."""
+    if entries.device.type == "cpu":
+        return composite_fwd_plain(entries, tile_start, tile_len, ntx, cfg)
+    e, t = _check(entries, tile_start, tile_len, cfg)
+    out = torch.empty((t, OUT_ROWS, cfg.tile_pixels), dtype=torch.float32, device=entries.device)
+    fwd_kernel.launch(
+        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out.data_ptr(), t,
+        *_tail(ntx, cfg, entries.device),
+    )
+    return out
+
+
+def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: RasterConfig):
+    """Per-entry gradients (PARAM_DIM, E) from the output cotangent `gout`.
+    Kernel: csrc/composite_bwd.cu."""
+    if entries.device.type == "cpu":
+        return composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx, cfg)
+    e, t = _check(entries, tile_start, tile_len, cfg, out_fwd=out_fwd, gout=gout)
+    # zeros: the kernel writes rows 0..17 of the chunks the forward pass
+    # reached; unreached chunks, rows 18..23 and the budget's tail stay zero
+    dentries = torch.zeros_like(entries)
+    bwd_kernel.launch(
+        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out_fwd.data_ptr(),
+        gout.data_ptr(), dentries.data_ptr(), t, *_tail(ntx, cfg, entries.device),
+    )
+    return dentries
+
+
+def composite_stats(entries, tile_start, tile_len, mask, weight_thres: float, ntx: int, cfg: RasterConfig):
+    """Per-entry (importance, count), each (1, E): importance = sum over the
+    tile's pixels of w * mask, count = #pixels with w * mask >= weight_thres.
+    `mask` is (T, P). Kernel: csrc/composite_stats.cu."""
+    if entries.device.type == "cpu":
+        return composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres, ntx, cfg)
+    e, t = _check(entries, tile_start, tile_len, cfg, mask=mask)
+    # zeros: the kernel writes only the chunks its replay reaches
+    imp = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
+    cnt = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
+    stats_kernel.launch(
+        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), mask.data_ptr(),
+        weight_thres, imp.data_ptr(), cnt.data_ptr(), t, *_tail(ntx, cfg, entries.device),
+    )
+    return imp, cnt
+
+
+class _Composite(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, entries, tile_start, tile_len, ntx, cfg):
+        out = composite_fwd(entries, tile_start, tile_len, ntx, cfg)
+        ctx.save_for_backward(entries, tile_start, tile_len, out)
+        ctx.ntx, ctx.cfg = ntx, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        entries, tile_start, tile_len, out = ctx.saved_tensors
+        dentries = composite_bwd(
+            entries, tile_start, tile_len, out, gout.contiguous(), ctx.ntx, ctx.cfg
+        )
+        return dentries, None, None, None, None
+
+
+def composite(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
+    """Differentiable tile composite (fwd kernel forward, bwd kernel backward)."""
+    return _Composite.apply(entries, tile_start, tile_len, ntx, cfg)

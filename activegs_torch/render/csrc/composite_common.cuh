@@ -1,0 +1,122 @@
+// Shared pieces of the three tile-compositor kernels (composite_fwd.cu,
+// composite_bwd.cu, composite_stats.cu).
+//
+// Layout: `entries` is (PARAM_DIM = 24, E) row-major float32; each tile's
+// entries form a depth-sorted segment [tile_start, tile_start + tile_len)
+// starting at a multiple of K. A block of P = tile_h * tile_w threads
+// renders one tile, one thread per pixel. Each K-entry chunk's 18 used
+// parameter rows are staged in shared memory as sh[row * K + k]; the rows
+// are contiguous along E, so the loads coalesce, and every thread then reads
+// the same entry at once (a broadcast, no bank conflicts).
+//
+// Arithmetic is strict float32 (no fast-math), with IEEE division, in the
+// op order of activegs_torch/render/preprocess.py::eval_alpha_depth_cols.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace composite {
+
+constexpr int kUsedRows = 18;  // entry rows 0..17 carry parameters
+constexpr int kOutRows = 16;
+
+// entry rows (render/types.py)
+constexpr int kMeanX = 0, kMeanY = 1, kConA = 2, kConB = 3, kConC = 4, kOpac = 5;
+constexpr int kColR = 6, kNrmX = 9, kPlaneA = 12, kPlaneB = 13, kPlaneC = 14;
+constexpr int kPlaneD = 15, kConf = 16, kDepthZ = 17;
+
+// exp(power) floored at exp(-80) < 1e-34, far below any alpha cut (as in
+// preprocess.POWER_FLOOR: outputs are unchanged)
+constexpr float kPowerFloor = -80.0f;
+
+struct Cfg {
+  float alpha_cut, alpha_max, term_eps, depth_lo, depth_hi;
+};
+
+struct Tile {
+  int start, nch;  // segment start, number of K-chunks
+  float px, py;    // this thread's pixel center
+};
+
+__device__ __forceinline__ Tile tile_of(const int* __restrict__ tile_start,
+                                        const int* __restrict__ tile_len, int ntx,
+                                        int tile_w, int tile_h, int kchunk) {
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  Tile tl;
+  tl.start = tile_start[t];
+  tl.nch = (tile_len[t] + kchunk - 1) / kchunk;
+  tl.px = (float)((t % ntx) * tile_w + p % tile_w) + 0.5f;
+  tl.py = (float)((t / ntx) * tile_h + p / tile_w) + 0.5f;
+  return tl;
+}
+
+// Stage rows 0..17 of chunk `chunk` into sh[row * K + k]; the caller
+// synchronizes before and after.
+__device__ __forceinline__ void load_chunk(float* sh, const float* __restrict__ entries,
+                                           long long e_total, int start, int chunk,
+                                           int kchunk) {
+  const float* src = entries + start + (long long)chunk * kchunk;
+  for (int idx = threadIdx.x; idx < kUsedRows * kchunk; idx += blockDim.x) {
+    const int r = idx / kchunk;
+    sh[idx] = src[(long long)r * e_total + (idx - r * kchunk)];
+  }
+}
+
+// alpha = min(alpha_max, op * exp(clamp(power, -80, 0))), zeroed below alpha_cut.
+// Pad entries are zero rows and give alpha = 0. `ex` returns exp(min(0, power)).
+__device__ __forceinline__ float eval_alpha(const float* sh, int kchunk, int k, float dx,
+                                            float dy, const Cfg& c, float* ex) {
+  const float ca = sh[kConA * kchunk + k];
+  const float cb = sh[kConB * kchunk + k];
+  const float cc = sh[kConC * kchunk + k];
+  const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+  *ex = expf(fminf(fmaxf(power, kPowerFloor), 0.0f));
+  const float a = fminf(sh[kOpac * kchunk + k] * *ex, c.alpha_max);
+  return a >= c.alpha_cut ? a : 0.0f;
+}
+
+// Surfel-plane depth t = D * (1 / (A u + B v + C)) clamped to
+// [depth_lo, depth_hi] * dz, dz where the plane is edge-on. Also returns
+// 1/denom, the raw t and whether the clamp is inactive (`inside`).
+struct PlaneDepth {
+  float t, inv_denom, t_raw;
+  bool inside;
+};
+
+__device__ __forceinline__ PlaneDepth eval_depth(const float* sh, int kchunk, int k, float px,
+                                                 float py, const Cfg& c) {
+  const float denom = sh[kPlaneA * kchunk + k] * px + sh[kPlaneB * kchunk + k] * py +
+                      sh[kPlaneC * kchunk + k];
+  const float dz = sh[kDepthZ * kchunk + k];
+  const bool ok = fabsf(denom) > 1e-8f;
+  PlaneDepth d;
+  d.inv_denom = 1.0f / (ok ? denom : 1.0f);
+  d.t_raw = sh[kPlaneD * kchunk + k] * d.inv_denom;
+  const float lo = c.depth_lo * dz;
+  const float hi = c.depth_hi * dz;
+  d.t = ok ? fminf(fmaxf(d.t_raw, lo), hi) : dz;
+  d.inside = ok && d.t_raw > lo && d.t_raw < hi;
+  return d;
+}
+
+// sum of the 7 composited features (rgb, normal, confidence) times g[7]
+__device__ __forceinline__ float feat_dot(const float* sh, int kchunk, int k, const float* g) {
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) s += sh[(kColR + c) * kchunk + k] * g[c];
+  return s + sh[kConf * kchunk + k] * g[6];
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace composite
+
+#define COMPOSITE_EXPORT_ERRSTR(name)                                 \
+  extern "C" const char* name##_errstr(int code) {                    \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));        \
+  }

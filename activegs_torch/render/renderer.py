@@ -1,0 +1,209 @@
+"""Public rendering API (port of `activegs_tpu/render/renderer.py`).
+
+`render_view` renders one posed view with the full channel set through
+preprocess -> binning -> the differentiable tile composite; `render_stats`
+returns per-gaussian importance/count from the stats kernel. The entry
+gather `params2d[gid]` is plain indexing, whose adjoint is `index_add_` by
+gid; per-view subsets use the same gather/index_add_ pair. Bins can be
+frozen per keyframe (`prepare_view_bins`) and reused across steps.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import binning
+from . import composite as cp
+from . import preprocess as pp
+from .types import O_CONF, O_DEPTH, O_TRANS, Camera, GaussianAttrs, RasterConfig, RenderOutput
+
+
+def tiles_to_image(out_tiles: torch.Tensor, image_shape, cfg: RasterConfig) -> torch.Tensor:
+    """(T, C, P) tile-major output -> (C, h, w) image."""
+    h, w = image_shape
+    th, tw, ntx, nty = binning.bin_tile_dims(image_shape, cfg)
+    c = out_tiles.shape[1]
+    img = out_tiles.reshape(nty, ntx, c, th, tw).permute(2, 0, 3, 1, 4)
+    return img.reshape(c, nty * th, ntx * tw)[:, :h, :w]
+
+
+def image_to_tiles(img: torch.Tensor, image_shape, cfg: RasterConfig) -> torch.Tensor:
+    """(h, w) image -> (T, P) tile-major layout, zero-padded to whole tiles."""
+    h, w = image_shape
+    th, tw, ntx, nty = binning.bin_tile_dims(image_shape, cfg)
+    m = torch.nn.functional.pad(img.to(torch.float32), (0, ntx * tw - w, 0, nty * th - h))
+    return m.reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(nty * ntx, th * tw).contiguous()
+
+
+def prepare_view_bins(
+    attrs: GaussianAttrs,
+    camera: Camera,
+    image_shape: tuple[int, int],
+    cfg: RasterConfig = RasterConfig(),
+    front_only: bool = False,
+    entry_budget: int | None = None,
+) -> binning.BinResult:
+    """Per-tile entry lists for a view (non-differentiable), reusable across
+    the optimization steps of one keyframe (frozen bins)."""
+    with torch.no_grad():
+        params2d, _, depth_z, in_view = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
+        return binning.bin_entries(params2d, depth_z, in_view, image_shape, cfg, entry_budget)
+
+
+def gather_entries(params2d: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """(PARAM_DIM, E) entry stream; pad entries (gid = -1) are zero rows.
+    The adjoint sums entry gradients into params2d rows with index_add_."""
+    rows = params2d.index_select(0, torch.clamp(gid, min=0))
+    return torch.where((gid >= 0)[:, None], rows, 0.0).t().contiguous()
+
+
+def render_view(
+    attrs: GaussianAttrs,
+    camera: Camera,
+    image_shape: tuple[int, int],
+    cfg: RasterConfig = RasterConfig(),
+    front_only: bool = False,
+    background: torch.Tensor | None = None,
+    bin_result: binning.BinResult | None = None,
+    entry_budget: int | None = None,
+):
+    """Render one view. Returns (RenderOutput, aux) with aux = {in_view,
+    radius, transmittance, num_dropped}. Pass `bin_result` (from
+    `prepare_view_bins`) to reuse frozen tile lists."""
+    params2d, radius, depth_z, in_view = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
+    b = bin_result
+    if b is None:
+        b = binning.bin_entries(
+            params2d.detach(), depth_z.detach(), in_view, image_shape, cfg, entry_budget
+        )
+    _, _, ntx, _ = binning.bin_tile_dims(image_shape, cfg)
+    entries = gather_entries(params2d, b.gid)
+    out_tiles = cp.composite(entries, b.tile_start, b.tile_len, ntx, cfg)
+    img = tiles_to_image(out_tiles[:, : O_TRANS + 1], image_shape, cfg)
+
+    trans = img[O_TRANS : O_TRANS + 1]
+    rgb = img[0:3]
+    if background is not None:
+        rgb = rgb + trans * background[:, None, None]
+    opacity = 1.0 - trans
+    vis = opacity.detach() > 1e-2
+    normal = img[3:6]
+    n2 = torch.sum(normal * normal, dim=0, keepdim=True)
+    normal = normal * torch.rsqrt(torch.clamp(n2, min=1e-24))
+    normal = normal * vis
+    output = RenderOutput(
+        rgb=rgb,
+        depth=img[O_DEPTH : O_DEPTH + 1],
+        normal=normal,
+        opacity=opacity,
+        confidence=img[O_CONF : O_CONF + 1],
+    )
+    aux = {
+        "in_view": in_view,
+        "radius": radius,
+        "transmittance": trans,
+        "num_dropped": b.num_dropped,
+    }
+    return output, aux
+
+
+# ---------------------------------------------------------------------------
+# per-view in-view compaction
+# ---------------------------------------------------------------------------
+
+PACK_DIM = 16  # means3 scales3 rot4 opac1 col3 conf1 valid1
+
+
+def pack_attrs(attrs: GaussianAttrs) -> torch.Tensor:
+    """(N, 16) row packing so a per-view subset is one row gather."""
+    return torch.cat(
+        [
+            attrs.means,
+            attrs.scales,
+            attrs.rotations,
+            attrs.opacities[:, None],
+            attrs.colors,
+            attrs.confidences[:, None],
+            attrs.valid.to(torch.float32)[:, None],
+        ],
+        dim=1,
+    )
+
+
+def unpack_attrs(packed: torch.Tensor) -> GaussianAttrs:
+    return GaussianAttrs(
+        means=packed[:, 0:3],
+        scales=packed[:, 3:6],
+        rotations=packed[:, 6:10],
+        opacities=packed[:, 10],
+        colors=packed[:, 11:14],
+        confidences=packed[:, 14],
+        valid=packed[:, 15] > 0.5,
+    )
+
+
+def compact_in_view(in_view: torch.Tensor, bucket: int):
+    """Compact the in-view gaussians into a static bucket, keeping their
+    order. Returns (sel (B,) int64, sel_valid (B,) bool, inv (N,) int64 with
+    -1 for absent, count ())."""
+    n = in_view.shape[0]
+    sel_full = torch.sort((~in_view).to(torch.int8), stable=True).indices
+    pos = torch.empty_like(sel_full)
+    pos[sel_full] = torch.arange(n, device=in_view.device)
+    count = in_view.sum()
+    sel_valid = torch.arange(bucket, device=in_view.device) < count
+    sel = torch.where(sel_valid, sel_full[:bucket], 0)
+    inv = torch.where(in_view & (pos < bucket), pos, -1)
+    return sel, sel_valid, inv, count
+
+
+def subset_view(packed: torch.Tensor, subset) -> GaussianAttrs:
+    """Differentiable compact attrs for one view; subset = (sel, sel_valid,
+    inv) from `compact_in_view`. The gather's adjoint is index_add_."""
+    sel, sel_valid, _ = subset
+    rows = packed.index_select(0, sel)
+    return unpack_attrs(torch.where(sel_valid[:, None], rows, 0.0))
+
+
+def render_stats(
+    attrs: GaussianAttrs,
+    camera: Camera,
+    image_shape: tuple[int, int],
+    cfg: RasterConfig = RasterConfig(),
+    render_mask: torch.Tensor | None = None,
+    weight_thres: float = 0.03,
+    front_only: bool = True,
+    subset_bucket: int | None = None,
+    entry_budget: int | None = None,
+):
+    """Per-gaussian (importance (N,) f32, count (N,) int32) for one view:
+    the stats kernel's per-entry sums added up by gid with index_add_.
+    `subset_bucket` compacts the view's in-view gaussians first (exact);
+    `entry_budget` bounds the binned entry stream."""
+    with torch.no_grad():
+        if subset_bucket is not None and subset_bucket < attrs.num:
+            _, _, _, iv = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
+            sel, selv, inv, _ = compact_in_view(iv, subset_bucket)
+            imp_s, cnt_s = render_stats(
+                subset_view(pack_attrs(attrs), (sel, selv, inv)), camera, image_shape, cfg,
+                render_mask, weight_thres, front_only, entry_budget=entry_budget,
+            )
+            present = inv >= 0
+            inv_c = torch.clamp(inv, min=0)
+            return torch.where(present, imp_s[inv_c], 0.0), torch.where(present, cnt_s[inv_c], 0)
+        h, w = image_shape
+        params2d, _, depth_z, in_view = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
+        b = binning.bin_entries(params2d, depth_z, in_view, image_shape, cfg, entry_budget)
+        _, _, ntx, _ = binning.bin_tile_dims(image_shape, cfg)
+        entries = gather_entries(params2d, b.gid)
+        if render_mask is None:
+            render_mask = torch.ones((h, w), device=entries.device)
+        mask_tiles = image_to_tiles(render_mask.reshape(h, w), image_shape, cfg)
+        imp_e, cnt_e = cp.composite_stats(
+            entries, b.tile_start, b.tile_len, mask_tiles, weight_thres, ntx, cfg
+        )
+        n = attrs.num
+        gid_safe = torch.where(b.gid >= 0, b.gid, n)
+        imp = torch.zeros(n + 1, device=entries.device).index_add_(0, gid_safe, imp_e[0])[:n]
+        cnt = torch.zeros(n + 1, device=entries.device).index_add_(0, gid_safe, cnt_e[0])[:n]
+        return imp, cnt.to(torch.int32)
