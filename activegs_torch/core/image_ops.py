@@ -10,11 +10,16 @@ from .quaternions import cross
 
 
 def _pad_replicate(x: torch.Tensor, r: int, dims=(0, 1)) -> torch.Tensor:
-    """Edge-replicate padding by r along `dims` (any layout)."""
+    """Edge-replicate padding by r along `dims` (any layout). Built from
+    expanded edge slices, whose adjoint is a plain sum, so gradients through
+    it are the same on every run (an index_select would scatter them back
+    with atomics on the card)."""
     for d in dims:
-        n = x.shape[d]
-        idx = torch.clamp(torch.arange(-r, n + r, device=x.device), 0, n - 1)
-        x = torch.index_select(x, d, idx)
+        shape = list(x.shape)
+        shape[d] = r
+        first = x.narrow(d, 0, 1).expand(shape)
+        last = x.narrow(d, x.shape[d] - 1, 1).expand(shape)
+        x = torch.cat([first, x, last], dim=d)
     return x
 
 

@@ -45,6 +45,8 @@ class MapConfig:
     prune_interval: int = 5
     prune_opacity: float = 0.1
     prune_occupancy: float = 0.95  # early prune above this count/capacity
+    # mission-loop warning threshold on the tile-entry truncation fraction
+    warn_dropped_frac: float = 0.10
     use_view_distribution: bool = True
     spawn_voxel_size: float = 0.02
     batch_size: int = 8

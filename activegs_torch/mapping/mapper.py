@@ -1,20 +1,32 @@
-"""The mapping half of one mission step (port of
-`activegs_tpu/mapping/mapper.py::IncrementalMapper._step_inner`, lines
-139-219): spawn on the new frame -> add the keyframe -> view stats ->
-train_keyframe -> stats budgets -> post_process -> write back. The voxel
-map, the planner and the mission loop come with the next slice.
+"""Incremental mapper: the online active-reconstruction mission loop (port
+of `activegs_tpu/mapping/mapper.py`).
+
+Each step plans to the next-best view and senses there, then updates the
+map: `mapping_step` (spawn on the new frame -> add the keyframe -> view
+stats -> train_keyframe -> stats budgets -> post_process -> write back),
+then the voxel log-odds update, then records, until the simulated-time
+budget runs out. Host code orchestrates; the heavy steps are the renderer's
+kernels and torch ops on the map's device.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import torch
 
+from ..io.recorder import MissionRecorder
 from ..render.types import RasterConfig
 from . import gaussians as gm
 from . import keyframes as kfb
 from . import trainer
+from . import voxel_map as vm
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def mapping_step(
@@ -33,8 +45,7 @@ def mapping_step(
     t0 = time.perf_counter()
 
     def mark(name):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _sync(dev)
         phase_t[name] = time.perf_counter() - t0 - sum(phase_t.values())
 
     state, n_new, n_spawn_dropped = gm.spawn(
@@ -80,6 +91,8 @@ def mapping_step(
         "num_dropped": num_dropped,
         "num_entries": num_entries,
         "dropped_frac": num_dropped / max(num_dropped + num_entries, 1),
+        "occupancy": occupancy,
+        "early_prune": early_prune,
         "require_prune": require_prune,
         "capacity_bucket": cap_b,
         "subset_bucket": subset_bucket,
@@ -87,3 +100,142 @@ def mapping_step(
         "phase_times": phase_t,
     }
     return state, buf, stats
+
+
+class IncrementalMapper:
+    """The mission loop: plan -> sense -> map -> voxel update -> record.
+    Wire a simulator, a planner and optionally a recorder, then `init_map`
+    and `step` (or `run`). Random draws come from a `torch.Generator`
+    seeded with `seed`; the planner keeps its own numpy generator."""
+
+    def __init__(
+        self,
+        map_cfg: gm.MapConfig = gm.MapConfig(),
+        voxel_cfg: vm.VoxelConfig = vm.VoxelConfig(),
+        raster_cfg: RasterConfig = RasterConfig(),
+        keyframe_capacity: int = 256,
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.map_cfg = map_cfg
+        self.voxel_cfg = voxel_cfg
+        self.raster_cfg = raster_cfg
+        self.keyframe_capacity = keyframe_capacity
+        self.device = torch.device(device)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.simulator = None
+        self.planner = None
+        self.recorder: Optional[MissionRecorder] = None
+        self.gm_state: Optional[gm.GaussianMapState] = None
+        self.vm_state: Optional[vm.VoxelMapState] = None
+        self.grid: Optional[vm.VoxelGrid] = None
+        self.keyframes: Optional[kfb.KeyframeBuffer] = None
+        self.frame_id = 0
+
+    def load_simulator(self, simulator):
+        self.simulator = simulator
+
+    def load_planner(self, planner):
+        self.planner = planner
+
+    def load_recorder(self, recorder):
+        self.recorder = recorder
+
+    def init_map(self):
+        self.gm_state = gm.init_state(self.map_cfg, self.device)
+        self.grid = vm.VoxelGrid.create(self.simulator.bbox, self.voxel_cfg)
+        self.vm_state = vm.init_state(self.grid, self.device)
+        h, w = (int(x) for x in self.simulator.resolution)
+        self.keyframes = kfb.init_buffer(self.keyframe_capacity, h, w, self.device)
+
+    def get_new_dataframe(self):
+        """Plan to the next-best view and sense there. Returns (frame, the
+        camera path (S, 4, 4) numpy)."""
+        cap_b = gm.bucket_capacity(self.gm_state.count, self.map_cfg.capacity)
+        path = self.planner.plan(
+            gm.slice_state(self.gm_state, cap_b), self.vm_state, self.grid, self.simulator, self.recorder
+        )
+        return self.simulator.simulate(torch.as_tensor(path[-1], device=self.device)), path
+
+    def step(self) -> dict:
+        """One mission iteration. Returns its stats: loss, spawn / prune
+        counts, truncation telemetry, mapping phase times (spawn,
+        view_stats, train, post, voxel) and the planner's phase times."""
+        frame, _ = self.get_new_dataframe()
+        t0 = time.perf_counter()
+        self.gm_state, self.keyframes, st = mapping_step(
+            self.gm_state, self.keyframes, frame, self.map_cfg, self.raster_cfg, self.generator
+        )
+        phase_t = st["phase_times"]
+        t1 = time.perf_counter()
+        self.vm_state = vm.update(self.vm_state, self.grid, frame)
+        _sync(self.device)
+        phase_t["voxel"] = time.perf_counter() - t1
+        t_mapping = time.perf_counter() - t0
+
+        num_dropped, num_entries = st["num_dropped"], st["num_entries"]
+        dropped_frac = round(num_dropped / max(num_dropped + num_entries, 1), 5)
+        # truncation health: both caps are survivable by design, but never
+        # silent
+        if dropped_frac > self.map_cfg.warn_dropped_frac:
+            print(
+                f" WARNING: {100 * dropped_frac:.1f}% of tile entries dropped "
+                f"(max_dup/entry-budget truncation) at step {self.frame_id + 1}"
+            )
+        if st["n_spawn_dropped"] > 0:
+            print(
+                f" WARNING: {st['n_spawn_dropped']} spawns dropped at full capacity "
+                f"({self.gm_state.count}/{self.map_cfg.capacity}) at step {self.frame_id + 1}"
+            )
+
+        self.frame_id += 1
+        occupancy = st["occupancy"]
+        stats = {
+            "frame_id": self.frame_id,
+            "loss": st["loss"],
+            "n_new": st["n_new"],
+            "n_pruned": st["n_pruned"],
+            "n_gaussians": self.gm_state.count,
+            "t_mapping": t_mapping,
+            "num_dropped": num_dropped,
+            "num_entries": num_entries,
+            "dropped_frac": dropped_frac,
+            "n_spawn_dropped": st["n_spawn_dropped"],
+            "capacity_occupancy": round(occupancy, 4),
+            "early_prune": st["early_prune"],
+            "capacity_bucket": st["capacity_bucket"],
+            "bucket_occupancy": self.gm_state.count / st["capacity_bucket"],
+            "subset_bucket": st["subset_bucket"],
+            "entry_budget": st["entry_budget"],
+            "phase_times": {k: round(v, 3) for k, v in phase_t.items()},
+            "plan_times": dict(getattr(self.planner, "last_plan_times", {})),
+        }
+        if self.recorder is not None:
+            self.recorder.update_time("mapping", t_mapping)
+            self.recorder.log_step_stats(stats)
+            self.recorder.log()
+            self.recorder.save_dataframe(frame, f"{self.frame_id:03d}")
+            if self.recorder.require_record:
+                self.recorder.save_map(self.gm_state, self.map_cfg, f"{self.frame_id:03d}")
+                self.recorder.save_path()
+        return stats
+
+    def run(self, max_steps: Optional[int] = None):
+        """Run the mission until the budget expires (or `max_steps`)."""
+        self.init_map()
+        while self.recorder is None or self.recorder.is_alive:
+            stats = self.step()
+            print(
+                f" step {stats['frame_id']}: loss {stats['loss']:.4f}, "
+                f"{stats['n_gaussians']} gaussians (+{stats['n_new']}/-{stats['n_pruned']}), "
+                f"mapping {stats['t_mapping']:.2f}s "
+                f"({' '.join(f'{k}={v:.2f}' for k, v in stats['phase_times'].items())}), "
+                f"dropped {stats['num_dropped']}, "
+                f"bucket {stats['n_gaussians']}/{stats['capacity_bucket']}, "
+                f"subset {stats['subset_bucket']}, entries {stats['entry_budget']}"
+            )
+            if max_steps is not None and self.frame_id >= max_steps:
+                break
+        if self.recorder is not None:
+            self.recorder.save_map(self.gm_state, self.map_cfg, "final")
+            self.recorder.save_path()

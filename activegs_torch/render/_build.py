@@ -1,12 +1,16 @@
-"""Build the hand-written CUDA kernels of `csrc/` into shared libraries.
+"""Build the hand-written CUDA kernels of a `csrc/` directory into shared
+libraries, and bind them.
 
-Each `csrc/<name>.cu` is compiled on its own by nvcc for sm_90a, strict
-fp32 (no --use_fast_math, no FMA contraction), into `<repo>/build/kernels/<name>-<digest>.so`,
-where the digest covers the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. The libraries have a plain C
-interface (`<name>_launch`, `<name>_errstr`) and are loaded with ctypes.
-Nothing is built at import time: `load` builds what is missing at first use,
-and `build_all` builds every kernel at once, one nvcc process per source.
+Each `<csrc>/<name>.cu` is compiled on its own by nvcc for sm_90a, strict
+fp32 (no --use_fast_math, no FMA contraction, IEEE division and expf), into
+`<repo>/build/kernels/<name>-<digest>.so`, where the digest covers the
+sources of its directory and the flags, so an edited source rebuilds and an
+unchanged one is reused. The libraries have a plain C interface
+(`<name>_launch`, `<name>_errstr`) and are loaded with ctypes. Nothing is
+built at import time: `load` builds what is missing at first use, and
+`build_all` builds a set of kernels at once, one nvcc process per source.
+The compositor kernels live in `render/csrc/` (`CSRC`); other packages of
+the port pass their own directory.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("composite_fwd", "composite_bwd", "composite_stats")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -30,7 +33,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers / spills into the build log
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[Path, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -43,26 +46,26 @@ def nvcc() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted(Path(csrc).glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every missing library, all nvcc processes started together.
-    Returns {name: ptxas log} for the sources compiled now; raises with the
-    compiler's output on failure."""
+def build_all(sources) -> dict[str, str]:
+    """Compile every missing library of `sources`, (csrc dir, name) pairs,
+    all nvcc processes started together. Returns {name: ptxas log} for the
+    sources compiled now; raises with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in names:
-        out = lib_path(name)
+    for csrc, name in sources:
+        out = lib_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(Path(csrc) / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     logs = {}
     failed = []
@@ -79,11 +82,46 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if missing."""
-    if name not in _loaded:
-        path = lib_path(name)
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of kernel `name` of `csrc`, built first if missing."""
+    path = lib_path(name, csrc)
+    if path not in _loaded:
         if not path.exists():
-            build_all((name,))
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+            build_all([(csrc, name)])
+        _loaded[path] = ctypes.CDLL(str(path))
+    return _loaded[path]
+
+
+class CudaKernel:
+    """One kernel `<csrc>/<source>.cu`, built and bound through ctypes at
+    first launch. `launches` counts the launches made through `launch`, and
+    nothing else."""
+
+    def __init__(self, source: str, argtypes: list, csrc: Path = CSRC):
+        self.source = source
+        self.csrc = Path(csrc)
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._errstr = None
+
+    @property
+    def library(self) -> Path:
+        return lib_path(self.source, self.csrc)
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            lib = load(self.source, self.csrc)
+            fn = getattr(lib, f"{self.source}_launch")
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.source}_errstr")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._errstr = fn, err
+        code = self._fn(*args)
+        if code != 0:
+            raise RuntimeError(
+                f"{self.source}: CUDA error {code} ({self._errstr(code).decode()})"
+            )
+        self.launches += 1

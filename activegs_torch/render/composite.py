@@ -24,39 +24,9 @@ import ctypes
 
 import torch
 
-from . import _build
 from . import preprocess as pp
+from ._build import CudaKernel
 from .types import O_CONF, O_DEPTH, O_STOP, O_TRANS, OUT_ROWS, PARAM_DIM, USED_ROWS, RasterConfig
-
-
-class CudaKernel:
-    """One kernel of `csrc/`, built and bound through ctypes at first launch.
-    `launches` counts the launches made through `launch`, and nothing else."""
-
-    def __init__(self, source: str, argtypes: list):
-        self.source = source
-        self.argtypes = argtypes
-        self.launches = 0
-        self._fn = None
-        self._errstr = None
-
-    def launch(self, *args) -> None:
-        if self._fn is None:
-            lib = _build.load(self.source)
-            fn = getattr(lib, f"{self.source}_launch")
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.source}_errstr")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._errstr = fn, err
-        code = self._fn(*args)
-        if code != 0:
-            raise RuntimeError(
-                f"{self.source}: CUDA error {code} ({self._errstr(code).decode()})"
-            )
-        self.launches += 1
-
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # common tail: ntx, tile_w, tile_h, K, alpha_cut, alpha_max, term_eps,

@@ -3,15 +3,17 @@
 `render_view` renders one posed view with the full channel set through
 preprocess -> binning -> the differentiable tile composite; `render_stats`
 returns per-gaussian importance/count from the stats kernel. The entry
-gather `params2d[gid]` is plain indexing, whose adjoint is `index_add_` by
-gid; per-view subsets use the same gather/index_add_ pair. Bins can be
-frozen per keyframe (`prepare_view_bins`) and reused across steps.
+gather `params2d[gid]` and the per-view subset gather are
+`core.scatter.gather_rows`, whose adjoint sums by id in a fixed order, so a
+training step gives the same gradients on every run. Bins can be frozen per
+keyframe (`prepare_view_bins`) and reused across steps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.scatter import gather_rows, scatter_sum
 from . import binning
 from . import composite as cp
 from . import preprocess as pp
@@ -52,9 +54,8 @@ def prepare_view_bins(
 
 def gather_entries(params2d: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     """(PARAM_DIM, E) entry stream; pad entries (gid = -1) are zero rows.
-    The adjoint sums entry gradients into params2d rows with index_add_."""
-    rows = params2d.index_select(0, torch.clamp(gid, min=0))
-    return torch.where((gid >= 0)[:, None], rows, 0.0).t().contiguous()
+    The adjoint sums entry gradients into params2d rows in a fixed order."""
+    return gather_rows(params2d, torch.clamp(gid, min=0), gid >= 0).t().contiguous()
 
 
 def render_view(
@@ -159,10 +160,9 @@ def compact_in_view(in_view: torch.Tensor, bucket: int):
 
 def subset_view(packed: torch.Tensor, subset) -> GaussianAttrs:
     """Differentiable compact attrs for one view; subset = (sel, sel_valid,
-    inv) from `compact_in_view`. The gather's adjoint is index_add_."""
+    inv) from `compact_in_view`. The gather's adjoint sums in a fixed order."""
     sel, sel_valid, _ = subset
-    rows = packed.index_select(0, sel)
-    return unpack_attrs(torch.where(sel_valid[:, None], rows, 0.0))
+    return unpack_attrs(gather_rows(packed, sel, sel_valid))
 
 
 def render_stats(
@@ -177,7 +177,7 @@ def render_stats(
     entry_budget: int | None = None,
 ):
     """Per-gaussian (importance (N,) f32, count (N,) int32) for one view:
-    the stats kernel's per-entry sums added up by gid with index_add_.
+    the stats kernel's per-entry sums added up by gid in a fixed order.
     `subset_bucket` compacts the view's in-view gaussians first (exact);
     `entry_budget` bounds the binned entry stream."""
     with torch.no_grad():
@@ -203,7 +203,5 @@ def render_stats(
             entries, b.tile_start, b.tile_len, mask_tiles, weight_thres, ntx, cfg
         )
         n = attrs.num
-        gid_safe = torch.where(b.gid >= 0, b.gid, n)
-        imp = torch.zeros(n + 1, device=entries.device).index_add_(0, gid_safe, imp_e[0])[:n]
-        cnt = torch.zeros(n + 1, device=entries.device).index_add_(0, gid_safe, cnt_e[0])[:n]
-        return imp, cnt.to(torch.int32)
+        sums = scatter_sum(torch.stack([imp_e[0], cnt_e[0]], dim=1), torch.clamp(b.gid, min=0), n, b.gid >= 0)
+        return sums[:, 0].contiguous(), sums[:, 1].to(torch.int32)

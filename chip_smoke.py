@@ -2,18 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the three tile-compositor kernels of `activegs_torch/render/csrc/`
-(one nvcc per source, all started together), then:
+Builds the five hand-written kernels of the port (the three tile-compositor
+kernels of `activegs_torch/render/csrc/` and the two elementwise-rate probes
+of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
+together), then drives three paths, each with the launch counters zeroed
+just before it and read just after:
 
-1. drives the mapping step (spawn -> keyframe view stats -> train_keyframe
-   -> stats budgets -> post_process -> write back) for 5 keyframes of the
-   boxroom simulator at 512 x 512 with the default `MapConfig` (capacity
-   2^19, 8 views x 10 Adam steps) and `RasterConfig`; keyframe 5 prunes.
-   The launch counters are zeroed just before and read just after;
-2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (keyframe-5 state), and a whole `batch_loss` value
-   and its gradients, kernel path against plain path;
-3. times each kernel and its plain version with CUDA events.
+1. the mapping step (spawn -> keyframe view stats -> train_keyframe -> stats
+   budgets -> post_process -> write back) for 5 keyframes of the boxroom
+   simulator from fixed poses, at 512 x 512 with the default `MapConfig`
+   (capacity 2^19, 8 views x 10 Adam steps) and `RasterConfig`; keyframe 5
+   prunes. Then it holds each compositor kernel against its plain PyTorch
+   version on the card at the main path's shapes (keyframe-5 state), a
+   whole `batch_loss` value and its gradients kernel path against plain
+   path, checks that two gradient computations are bitwise equal, and
+   times each kernel and its plain version with CUDA events;
+2. the probe entry points (`python -m activegs_torch.scripts.microbench_vpu`
+   and `... microbench_bf16`) at the reference's sizes, then holds every
+   probe op bitwise against its plain version at those sizes and rounds on
+   distinct inputs, reads each probe loop's instructions per round from its
+   SASS, and turns the measured rates into a second bound for each
+   compositor kernel;
+3. a 6-step confidence-planner mission through `IncrementalMapper` (boxroom
+   at 512 x 512, `MapConfig()`, `VoxelConfig()`, `PlannerConfig()`: 100
+   candidates rendered at 128 x 128), recorded by a `MissionRecorder` into
+   the git-ignored `build/mission/`; it checks the losses, that exploration
+   rises, that the robot moves, that planning launches the forward kernel
+   once per candidate, and holds one plan step's candidate utilities
+   through the kernel against those through the plain forward version.
 
 It prints a `kernels` JSON line, the card's name and power limit, and ends
 with one JSON line {"ok": true, "device": {...}}. It exits non-zero, with no
@@ -26,7 +42,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -35,6 +50,7 @@ from unittest import mock
 import torch
 
 KEYFRAMES = 5
+MISSION_STEPS = 6
 RES = 512
 POS = (3.0, 2.5, 1.5)
 YAW_DEG = (-40.0, -20.0, 0.0, 20.0, 40.0)  # turning around POS, +x wall first
@@ -50,10 +66,20 @@ PEAK_BYTES_PER_S = 3.35e12
 # the kernels' arithmetic (a multiply-add is 2, expf and a division 1 each);
 # recomputation and reduction trees that a design adds are not counted
 OPS_PER_PAIR = {"composite_fwd": 50, "composite_bwd": 105, "composite_stats": 25}
+# of those, expf and IEEE divisions per pair (each also counted as 1 above)
+EXP_DIV_PER_PAIR = {"composite_fwd": (1, 1), "composite_bwd": (1, 1), "composite_stats": (1, 0)}
 REPLACES = {
     "composite_fwd": "activegs_tpu/render/composite_pallas.py:179",
     "composite_bwd": "activegs_tpu/render/composite_pallas.py:297",
     "composite_stats": "activegs_tpu/render/composite_pallas.py:522",
+    "microbench_vpu": "scripts/microbench_vpu.py:37",
+    "microbench_bf16": "scripts/microbench_bf16.py:30",
+}
+# instructions each probe loop must still hold (nvcc must not fold the chain)
+SASS_NEEDS = {
+    "fma": ("FMUL", "FADD"), "fma_fused": ("FFMA",), "mul": ("FMUL",), "add": ("FADD",),
+    "cmpsel": ("FSETP", "FMUL"), "exp": ("MUFU.EX2",), "div": ("MUFU.RCP",),
+    "float32": ("FMUL", "FADD"), "bfloat16": ("HMUL2.BF16", "HADD2.BF16"),
 }
 
 
@@ -90,7 +116,7 @@ def poses(dev):
 
 
 def main_path(dev):
-    """Phase 2: KEYFRAMES mapping steps at full width. Returns (state, buf,
+    """Path 1: KEYFRAMES mapping steps at full width. Returns (state, buf,
     {kernel: launches in the run}, map config, raster config)."""
     from activegs_torch.mapping import gaussians as gm
     from activegs_torch.mapping import keyframes as kf
@@ -154,7 +180,7 @@ def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def compare(state, buf, cfg, rcfg):
-    """Phase 3: kernels against plain versions at the main path's shapes.
+    """Path 1, checks: kernels against plain versions at the main path's shapes.
     Returns ({kernel: max abs error}, {kernel: (kernel call, plain call,
     (entry, pixel) pairs reached, bytes moved)})."""
     from activegs_torch.mapping import gaussians as gm
@@ -265,6 +291,10 @@ def compare(state, buf, cfg, rcfg):
     print(f"batch_loss: kernel {lk:.7f} plain {lp:.7f} rel err {e_loss:.3g}; grad rel L2 err (max scaled) "
           + " ".join(f"{n} {e:.3g} ({scaled_err(a, p):.3g})" for n, e, a, p in zip(trainer.PARAM_FIELDS, errs, gk, gp)))
     check(e_loss <= 1e-5 and max(errs) <= 1e-3, "batch_loss through the kernels disagrees with the plain path")
+    lk2, gk2 = loss_grads()
+    same = float(lk2.detach()) == lk and all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    print(f"determinism: two batch_loss gradient computations bitwise equal: {same}")
+    check(same, "two computations of the same batch_loss gradients differ")
 
     k_chunk, p_tile = rcfg.chunk, rcfg.tile_pixels
     inputs = {
@@ -292,17 +322,214 @@ def compare(state, buf, cfg, rcfg):
 
 def time_ms(fn, n: int) -> float:
     """Median device time of one call, from CUDA events around each call."""
-    fn()
+    from activegs_torch.scripts import probe
+
+    return probe.time_ms(fn, n, "cuda")
+
+
+def probe_phase(dev):
+    """Path 2: the probe entry points at the reference's sizes (counters
+    zeroed before, read after), each probe op bitwise against its plain
+    version at the same sizes, plain times, and each probe loop's
+    instructions per round from its SASS with the bound they give.
+    Returns ({kernel: record}, {op: measured Tops/s})."""
+    from activegs_torch.scripts import microbench_bf16 as bf
+    from activegs_torch.scripts import microbench_vpu as vpu
+    from activegs_torch.scripts import probe
+
+    for k in (*vpu.KERNELS, *bf.KERNELS):
+        k.launches = 0
+    vres = vpu.main([])
+    bres = bf.main([])
     torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    launches = {k.source: k.launches for k in (*vpu.KERNELS, *bf.KERNELS)}
+    print(f"probe path: launches {launches}")
+    check(all(n > 0 for n in launches.values()), f"a probe kernel was not launched on the probe path: {launches}")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = probe.sm_clock_mhz()
+    print(f"probe bounds at {sms} SMs x {clock:.0f} MHz (maximum SM clock), per-SM rates of compute capability 9.0")
+
+    def loop_counts(kern, name_part):
+        funcs = probe.sass(kern.library)
+        name = next(n for n in funcs if name_part in n)
+        return probe.per_round(probe.loop_opcodes(funcs[name]), vpu.UNROLL)
+
+    # held at the path's shapes and rounds, on distinct inputs; -fmad=false
+    # makes every op bitwise equal to its plain version
+    per_op, errs = {}, []
+    x = torch.linspace(0.25, 2.0, vpu.GRID * vpu.SUB * vpu.LANE, device=dev).reshape(vpu.GRID, vpu.SUB, vpu.LANE)
+    xf = torch.full_like(x, 0.5)  # the timing input of `vpu.run`
+    for i, op in enumerate(vpu.OPS):
+        k, p = vpu.chain(x, op), vpu.chain_plain(x, op)
+        errs.append(float((k - p).abs().max()))
+        moved = float((p != x).float().mean())
+        check(torch.equal(k, p), f"probe {op}: kernel differs from plain, max abs err {errs[-1]}")
+        counts = loop_counts(vpu.kernel, f"chainILi{i}E")
+        check(all(any(o.startswith(r) for o in counts) for r in SASS_NEEDS[op]),
+              f"probe {op}: its loop lost one of {SASS_NEEDS[op]}: {counts}")
+        cyc, limit = probe.cycles_per_round(counts)
+        bound = probe.bound_ms(xf.numel(), vpu.ROUNDS, cyc, sms, clock)
+        plain_ms = time_ms(lambda: vpu.chain_plain(xf, op), 1)
+        per_op[op] = {**vres[op], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": limit,
+                      "instructions_per_round": counts}
+        mix = " ".join(f"{o} {n:g}" for o, n in counts.items())
+        print(f"  {op:9s}: equal ({moved:.1%} of elements moved); SASS per round: {mix}; bound {bound:.4f} ms "
+              f"({limit}), kernel {vres[op]['ms']:.4f} ms = {bound / vres[op]['ms']:.1%} of bound; "
+              f"plain {plain_ms:.2f} ms")
+
+    # from the reference's input of ones the bf16 chain is the identity (c1
+    # rounds to 1.0, c0 is under half an ulp), so it is held on values of
+    # the band where every round moves every bf16 value
+    per_dt = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    lo, hi = bf.MOVING_BAND
+    xb = lo + (hi - lo) * torch.rand((bf.GRID, bf.SUB, bf.LANE), generator=g, device=dev)
+    xbf = torch.ones_like(xb)  # the timing input of `bf.run`
+    for dt, part, threads in (("float32", "chain_f32", xb.numel()), ("bfloat16", "chain_bf16", xb.numel() // 2)):
+        k, p = bf.chain(xb, dt), bf.chain_plain(xb, dt)
+        check(torch.equal(k, p), f"probe bf16 ({dt}): kernel differs from plain")
+        short = bf.chain_plain(xb, dt, bf.ROUNDS - bf.UNROLL)
+        start = xb.to(getattr(torch, dt)).float()
+        moved, bites = float((p != start).float().mean()), float((p != short).float().mean())
+        check(moved == 1.0 and bites == 1.0, f"probe bf16 ({dt}): the check input does not move every element "
+              f"in every round ({moved:.1%} moved, {bites:.1%} differ from {bf.UNROLL} rounds fewer)")
+        counts = loop_counts(bf.kernel, part)
+        check(all(any(o.startswith(r) for o in counts) for r in SASS_NEEDS[dt]),
+              f"probe {dt}: its loop lost one of {SASS_NEEDS[dt]}: {counts}")
+        cyc, limit = probe.cycles_per_round(counts)
+        bound = probe.bound_ms(threads, bf.ROUNDS, cyc, sms, clock)
+        plain_ms = time_ms(lambda: bf.chain_plain(xbf, dt), 1)
+        per_dt[dt] = {**bres[dt], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": limit,
+                      "instructions_per_round": counts}
+        mix = " ".join(f"{o} {n:g}" for o, n in counts.items())
+        print(f"  {dt:9s}: equal (every element moved, and differs from {bf.UNROLL} rounds fewer); "
+              f"SASS per round ({'pair' if dt == 'bfloat16' else 'element'}): {mix}; "
+              f"bound {bound:.4f} ms ({limit}), kernel {bres[dt]['ms']:.4f} ms; plain {plain_ms:.2f} ms")
+    print(f"probe ratio f32/bf16 = {bres['ratio']:.3f}")
+
+    records = {
+        "microbench_vpu": dict(
+            route="cuda", source="activegs_torch/scripts/csrc/microbench_vpu.cu", launches=launches["microbench_vpu"],
+            max_abs_err=max(errs), ms=per_op["fma"]["ms"], plain_ms=per_op["fma"]["plain_ms"],
+            bound_ms=per_op["fma"]["bound_ms"], bound_by="operations", library_ms=None, per_op=per_op,
+        ),
+        "microbench_bf16": dict(
+            route="cuda", source="activegs_torch/scripts/csrc/microbench_bf16.cu", launches=launches["microbench_bf16"],
+            max_abs_err=0.0, ms=per_dt["bfloat16"]["ms"], plain_ms=per_dt["bfloat16"]["plain_ms"],
+            bound_ms=per_dt["bfloat16"]["bound_ms"], bound_by="operations", library_ms=None, per_dtype=per_dt,
+            ratio_f32_bf16=bres["ratio"],
+        ),
+    }
+    return records, {op: r["tops"] for op, r in vres.items()}
+
+
+def measured_rate_bound_ms(name: str, pairs: int, tops: dict) -> float:
+    """Least time for a compositor kernel's pairs at the probe's measured
+    rates: its expf at the exp round's rate (exp, negate, add: 3 ops), its
+    divisions at the div round's rate (2 ops), and the rest of its
+    operations at the rate of a multiply then an add as the kernels compile
+    them (-fmad=false)."""
+    n_exp, n_div = EXP_DIV_PER_PAIR[name]
+    rest = OPS_PER_PAIR[name] - 3 * n_exp - 2 * n_div
+    per_pair = rest / tops["fma"] + 3 * n_exp / tops["exp"] + 2 * n_div / tops["div"]  # ps at Tops/s
+    return pairs * per_pair * 1e-12 * 1e3
+
+
+def mission_phase(dev):
+    """Path 3: a confidence-planner mission of MISSION_STEPS steps through
+    `IncrementalMapper`, the compositor counters zeroed before and read
+    after. Returns ({kernel: launches}, the mapper)."""
+    from activegs_torch.io.recorder import MissionRecorder
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import voxel_map as vm
+    from activegs_torch.mapping.mapper import IncrementalMapper
+    from activegs_torch.planning import ConfidencePlanner, PlannerConfig
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import RasterConfig
+    from activegs_torch.sim.synthetic import BoxRoomSimulator
+
+    map_cfg, voxel_cfg, raster_cfg = gm.MapConfig(), vm.VoxelConfig(), RasterConfig()
+    planner = ConfidencePlanner(PlannerConfig(), map_cfg, voxel_cfg, raster_cfg, seed=SEED)
+    plan_launches = []
+    plan = planner.plan
+
+    def counted_plan(*args, **kwargs):
+        n0 = cp.fwd_kernel.launches
+        path = plan(*args, **kwargs)
+        plan_launches.append(cp.fwd_kernel.launches - n0)
+        return path
+
+    planner.plan = counted_plan
+    mapper = IncrementalMapper(map_cfg, voxel_cfg, raster_cfg, seed=SEED, device=dev)
+    mapper.load_simulator(BoxRoomSimulator(resolution=(RES, RES), seed=SEED, device=dev))
+    mapper.load_planner(planner)
+    mapper.load_recorder(MissionRecorder("build/mission", budget=1e9, record_interval=1e9))
+    mapper.init_map()
+    for k in cp.KERNELS:
+        k.launches = 0
+    explored, positions, t0 = [], [], time.perf_counter()
+    for i in range(MISSION_STEPS):
+        st = mapper.step()
+        explored.append(1.0 - float(mapper.vm_state.unexplored.float().mean()))
+        positions.append(tuple(float(v) for v in planner.pose[:3, 3]))
+        n_cand = 0 if planner.last_candidates is None or i == 0 else len(planner.last_candidates)
+        ph = " ".join(f"{k} {v:.3f}s" for k, v in st["phase_times"].items())
+        pl = " ".join(f"{k} {v:.3f}s" for k, v in st["plan_times"].items())
+        print(f"mission step {i + 1}: loss {st['loss']:.5f} gaussians {st['n_gaussians']} "
+              f"(+{st['n_new']}/-{st['n_pruned']}) | map {ph} | plan {pl or '-'} | explored {explored[-1]:.4f} "
+              f"| planning fwd launches {plan_launches[-1]} for {n_cand} candidates | pose {positions[-1]}")
+        check(math.isfinite(st["loss"]), f"mission step {i + 1}: loss {st['loss']}")
+        check(plan_launches[-1] == n_cand, f"mission step {i + 1}: {plan_launches[-1]} fwd launches "
+              f"in planning for {n_cand} candidates")
+    torch.cuda.synchronize()
+    launches = {k.source: k.launches for k in cp.KERNELS}
+    print(f"mission: {MISSION_STEPS} steps in {time.perf_counter() - t0:.2f} s, launches {launches}, "
+          f"recorder {mapper.recorder.log()}")
+    check(explored[-1] > explored[0], f"exploration did not rise: {explored}")
+    check(len(set(positions[1:])) > 1, f"the robot did not move: {positions}")
+    check(all(n > 0 for n in plan_launches[1:]), f"planning launched no fwd kernel: {plan_launches}")
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched on the mission path: {launches}")
+    return launches, mapper
+
+
+def utility_check(mapper) -> None:
+    """One plan step's candidate utilities (the mission's last candidates on
+    its final map), through the kernel and through the plain forward
+    version: explore within 1 voxel over num_voxels, exploit at relative
+    error (max over candidates, to the largest) at most 1e-4."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping.trainer import pick_entry_bucket, pick_subset_bucket
+    from activegs_torch.planning import confidence as cf
+    from activegs_torch.render import composite as cp
+
+    planner, sim, grid = mapper.planner, mapper.simulator, mapper.grid
+    dev = mapper.device
+    state = gm.slice_state(mapper.gm_state, gm.bucket_capacity(mapper.gm_state.count, mapper.map_cfg.capacity))
+    h, w = (int(round(planner.cfg.render_ratio * r)) for r in sim.resolution)
+    cands = torch.as_tensor(planner.last_candidates, device=dev)
+    masks, _ = planner._candidate_valid_masks(planner.last_candidates, sim, (h, w))
+    ents, ivs = cf._candidate_entry_stats(state, cands, sim.intrinsic, (h, w), planner.map_cfg,
+                                          planner.utility_raster_cfg)
+
+    def utilities():
+        return cf._confidence_utility_batch(
+            state, mapper.vm_state.unexplored, cands, sim.intrinsic, masks,
+            torch.tensor(sim.depth_range, dtype=torch.float32, device=dev), grid, (h, w), planner.map_cfg,
+            planner.utility_raster_cfg, entry_budget=pick_entry_bucket(ents),
+            subset_bucket=pick_subset_bucket(ivs, state.capacity),
+        )
+
+    n0 = cp.fwd_kernel.launches
+    ek, xk = utilities()
+    check(cp.fwd_kernel.launches - n0 == len(cands), "the utility check did not launch the kernel per candidate")
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain):
+        ep, xp = utilities()
+    e_err = float((ek - ep).abs().max()) * grid.num_voxels
+    x_err = float((xk - xp).abs().max() / xp.abs().max().clamp(min=1e-12))
+    print(f"utility check: {len(cands)} candidates at {h}x{w}, explore max diff {e_err:.3g} voxels, "
+          f"exploit rel err {x_err:.3g} (max exploit {float(xp.max()):.4g})")
+    check(e_err <= 1.0 and x_err <= 1e-4, "candidate utilities through the kernel disagree with the plain path")
 
 
 def main() -> None:
@@ -311,13 +538,15 @@ def main() -> None:
     try:
         from activegs_torch.render import _build
         from activegs_torch.render import composite as cp
+        from activegs_torch.scripts import microbench_bf16, microbench_vpu
     except ImportError as e:
         fail(f"the activegs_torch package is not beside this script ({e})")
     card = smi()
     print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    all_kernels = (*cp.KERNELS, *microbench_vpu.KERNELS, *microbench_bf16.KERNELS)
+    logs = _build.build_all([(k.csrc, k.source) for k in all_kernels])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(logs)} compiled)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -325,8 +554,12 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     dev = torch.device("cuda")
-    state, buf, launches, cfg, rcfg = main_path(dev)
+    state, buf, map_launches, cfg, rcfg = main_path(dev)
     errs, inputs = compare(state, buf, cfg, rcfg)
+    del state, buf
+    probes, tops = probe_phase(dev)
+    mission_launches, mapper = mission_phase(dev)
+    utility_check(mapper)
 
     kernels = []
     for name, (kfn, pfn, pairs, nbytes) in inputs.items():
@@ -335,21 +568,28 @@ def main() -> None:
         t_ops = pairs * OPS_PER_PAIR[name] / PEAK_FP32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
+        measured = measured_rate_bound_ms(name, pairs, tops)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"activegs_torch/render/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": mission_launches[name],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
+            "measured_rate_bound_ms": measured,
+            "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name]},
         })
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms "
-              f"({pairs} pairs), {launches[name] / KEYFRAMES:.1f} launches per keyframe")
+        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms data sheet, "
+              f"{measured:.4f} ms at the probe's measured rates ({pairs} pairs), "
+              f"{map_launches[name] / KEYFRAMES:.1f} launches per fixed-pose keyframe, "
+              f"{mission_launches[name]} in the {MISSION_STEPS}-step mission")
+    for name, rec in probes.items():
+        kernels.append({"name": name, "replaces": REPLACES[name], **rec})
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -116,3 +117,100 @@ def test_mapping_step_runs_the_kernels(cuda):
         state, buf, st = mapping_step(state, buf, frame, cfg, rcfg, gen)
         assert math.isfinite(st["loss"]) and st["n_gaussians"] > 0
     assert all(k.launches > 0 for k in cp.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["fma", "fma_fused", "mul", "add", "cmpsel", "exp", "div"])
+def test_vpu_probe_kernel_matches_plain(cuda, op):
+    from activegs_torch.scripts import microbench_vpu as vpu
+
+    x = torch.linspace(0.25, 2.0, 2 * 128 * 128, device=cuda).reshape(2, 128, 128)
+    n0 = vpu.kernel.launches
+    k, p = vpu.chain(x, op), vpu.chain_plain(x, op)
+    torch.cuda.synchronize()
+    assert vpu.kernel.launches == n0 + 1
+    assert torch.equal(k, p)  # -fmad=false: each op rounds as its plain version does
+    assert float((p != x).float().mean()) > 0.75
+    with pytest.raises(ValueError):
+        vpu.chain(x, op, 250)  # not a multiple of the kernel's unroll
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_probe_kernel_matches_plain(cuda, dtype):
+    from activegs_torch.scripts import microbench_bf16 as bf
+
+    lo, hi = bf.MOVING_BAND
+    x = lo + (hi - lo) * torch.rand((2, 256, 512), generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    k, p = bf.chain(x, dtype), bf.chain_plain(x, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    # the check bites: every element moved, and a chain of one loop
+    # iteration fewer ends elsewhere
+    assert bool((p != x.to(getattr(torch, dtype)).float()).all())
+    assert bool((p != bf.chain_plain(x, dtype, bf.ROUNDS - bf.UNROLL)).all())
+
+
+@pytest.mark.cuda
+def test_gradient_sums_are_bitwise_repeatable(cuda):
+    """The fixed-order sums and the gathers built on them give the same
+    bits on every call, where index_add_ may not."""
+    from activegs_torch.core.scatter import gather_rows, scatter_sum
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    idx = torch.randint(0, 1000, (200000,), device=cuda, generator=g)
+    val = torch.randn(200000, 24, device=cuda, generator=g)
+    ok = torch.rand(200000, device=cuda, generator=g) > 0.3
+    sums = [scatter_sum(val, idx, 1000, ok) for _ in range(10)]
+    assert all(torch.equal(sums[0], s) for s in sums)
+    # against a float64 sum: some 140 terms a target, summed in float32
+    want = torch.zeros(1000, 24, dtype=torch.float64, device=cuda).index_add_(0, idx[ok], val[ok].double())
+    torch.testing.assert_close(sums[0].double(), want, rtol=0, atol=2e-4)
+    src = torch.randn(1000, 24, device=cuda, generator=g, requires_grad=True)
+    w = torch.randn(200000, 24, device=cuda, generator=g)
+    grads = [torch.autograd.grad((gather_rows(src, idx, ok) * w).sum(), src)[0] for _ in range(10)]
+    assert all(torch.equal(grads[0], x) for x in grads)
+    # a whole render's parameter gradients
+    cfg = CFGS["k128"]
+    cam = tt.Camera(torch.eye(4, device=cuda), geo.intrinsics_from_fov(60.0, 60.0, device=cuda))
+    base = scene(cuda)
+
+    def render_grads():
+        leaves = {n: getattr(base, n).clone().requires_grad_(True) for n in ("means", "opacities", "colors")}
+        attrs = dataclasses.replace(base, **leaves)
+        o, _ = renderer.render_view(attrs, cam, SHAPE, cfg)
+        return torch.autograd.grad(o.rgb.sum() + o.depth.sum(), list(leaves.values()))
+
+    first = render_grads()
+    for _ in range(5):
+        assert all(torch.equal(a, b) for a, b in zip(first, render_grads()))
+
+
+@pytest.mark.cuda
+def test_candidate_utility_kernel_matches_plain(cuda):
+    """One candidate's (explore, exploit) through the fwd kernel against the
+    plain forward version: explore within 1 voxel, exploit at 1e-4."""
+    from unittest import mock
+
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import voxel_map as vm
+    from activegs_torch.planning import confidence as cf
+    from activegs_torch.sim.synthetic import BoxRoomSimulator
+
+    cfg, rcfg = gm.MapConfig(capacity=8192, bilateral_radius=2), tt.RasterConfig(entry_budget_mult=4.0)
+    sim = BoxRoomSimulator(resolution=SHAPE, seed=11, depth_noise_co=0.0, device=cuda)
+    frame = sim.simulate(geo.look_at((3.0, 2.5, 1.5), (5.5, 2.5, 1.2), device=cuda))
+    state, _, _ = gm.spawn(gm.init_state(cfg, device=cuda), frame, cfg, rcfg)
+    grid = vm.VoxelGrid.create(sim.bbox, vm.VoxelConfig(map_resolution=(0.4, 0.4, 0.4)))
+    vstate = vm.update(vm.init_state(grid, cuda), grid, frame)
+    cand = geo.look_at((3.0, 2.5, 1.5), (5.0, 4.0, 1.0), device=cuda)[None]
+    args = (state, vstate.unexplored, cand, sim.intrinsic, torch.ones((1, 16, 16), dtype=torch.bool, device=cuda),
+            torch.tensor(sim.depth_range, device=cuda), grid, (16, 16), cfg, rcfg)
+    n0 = cp.fwd_kernel.launches
+    ek, xk = cf._confidence_utility_batch(*args)
+    assert cp.fwd_kernel.launches == n0 + 1
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain):
+        ep, xp = cf._confidence_utility_batch(*args)
+    assert float(xp[0]) > 0
+    assert float((ek - ep).abs().max()) * grid.num_voxels <= 1.0
+    assert float((xk - xp).abs().max()) <= 1e-4 * float(xp.abs().max())
