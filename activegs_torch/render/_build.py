@@ -66,10 +66,11 @@ def build_all(sources) -> dict[str, str]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(Path(csrc) / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        # keyed by library: two directories may hold sources of one name
+        jobs[out] = (name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     logs = {}
     failed = []
-    for name, (proc, tmp, out) in jobs.items():
+    for out, (name, proc, tmp) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")

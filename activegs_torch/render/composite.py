@@ -33,7 +33,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # depth_lo, depth_hi, stream
 _TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
 fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I] + _TAIL)
-bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _I] + _TAIL)
+bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _P, _I] + _TAIL)
 stats_kernel = CudaKernel("composite_stats", [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL)
 KERNELS = (fwd_kernel, bwd_kernel, stats_kernel)
 
@@ -215,6 +215,24 @@ def composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx: int, 
     return dentries
 
 
+def live_warp_rows(entries, tile_start, tile_len, stop, ntx: int, cfg: RasterConfig) -> tuple[int, int]:
+    """What the backward kernel's cull keeps, in plain PyTorch: of the
+    (entry, 32-pixel row) pairs of each tile's real entries in the chunks
+    it reached (`stop`, (T,)), how many have some alpha > 0. A 32-pixel row
+    is one warp of the kernel. Returns (live, all)."""
+    t_n, k = tile_start.shape[0], cfg.chunk
+    px, py = tile_pixel_coords(t_n, ntx, cfg, entries.device)
+    stop = stop.to(torch.int64)
+    live = 0
+    for c in range(int(stop.max()) if t_n else 0):
+        act = torch.nonzero(stop > c).squeeze(1)
+        e, _ = _chunk(entries, tile_start, tile_len, act, c, k)
+        alpha, _ = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
+        live += int((alpha > 0.0).reshape(*alpha.shape[:2], -1, 32).any(-1).sum())
+    real = int(torch.minimum(tile_len.to(torch.int64), stop * k).sum())
+    return live, real * cfg.tile_pixels // 32
+
+
 def composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres: float, ntx: int, cfg: RasterConfig):
     t_n, k = tile_start.shape[0], cfg.chunk
     dev = entries.device
@@ -266,9 +284,11 @@ def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: R
     # zeros: the kernel writes rows 0..17 of the chunks the forward pass
     # reached; unreached chunks, rows 18..23 and the budget's tail stay zero
     dentries = torch.zeros_like(entries)
+    # scratch: the order in which the kernel's blocks take the tiles
+    order = torch.empty(t, dtype=torch.int32, device=entries.device)
     bwd_kernel.launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out_fwd.data_ptr(),
-        gout.data_ptr(), dentries.data_ptr(), t, *_tail(ntx, cfg, entries.device),
+        gout.data_ptr(), dentries.data_ptr(), order.data_ptr(), t, *_tail(ntx, cfg, entries.device),
     )
     return dentries
 

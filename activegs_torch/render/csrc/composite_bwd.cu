@@ -21,42 +21,240 @@
 // chunks at or past the stop, rows 18..23 and the budget's tail at zero.
 //
 // What bounds it on the H100: FP32 CUDA-core work. The gradient needs 105
-// operations per pair (a multiply-add counted as 2): 30 for alpha and the
-// plane depth, 16 for q, 10 for dalpha and its clamp mask, 31 for the 18
-// per-pair gradient terms, 18 adds to sum them over pixels. This design
-// adds about 50 more for a first pass over the chunk (its total product and
-// sum of w q, recomputing alpha, depth and q), and 90 warp shuffles plus 90
-// adds for the 18 five-step shuffle trees; a shuffle issues at a quarter of
-// the FP32 rate, so the reduction is the largest cost. Memory is small: 72
-// bytes of parameters and 72 of gradients per entry, shared by 512 pixels.
+// operations per real (entry, pixel) pair (a multiply-add counted as 2): 30
+// for alpha and the plane depth, 16 for q, 10 for dalpha and its clamp
+// mask, 31 for the 18 per-pair gradient terms, 18 adds to sum them over
+// pixels. A design adds a first pass over the chunk (its total product and
+// sum of w q) and the cost of moving the 18 sums across a warp's lanes.
+// With one five-step shuffle tree per column, 18 trees per (entry, warp),
+// 90 shuffles at a quarter of the FP32 issue rate were the largest cost,
+// paid on every pair of the reached chunks. Memory is small: 72 bytes of
+// parameters and 72 of gradients per entry, shared by 512 pixels. What
+// bounds this design is instruction issue: about 40 SASS instructions for
+// every (entry, warp) of the reached chunks (alpha and the ballot) and
+// about 300 more for each live one (both passes and the 20 shuffles).
 //
-// Design: one block per tile, one thread per pixel; the chunk's parameters
-// are staged in shared memory as in the forward kernel. The 18 per-entry
-// sums use warp shuffles, then shared memory across the block's warps, in
-// sub-chunks of 32 entries (18 x 32 x 16 warps partials); each entry
-// belongs to exactly one tile, so no atomics are needed across blocks.
+// Design: one block per tile, one thread per pixel, so a warp is 32
+// neighbouring pixels (a row of the 16x32 tile).
+// - Exact warp cull. A surfel covers a few rows of a tile, and where no lane
+//   of a warp has alpha > 0 every per-pair term of the entry is exactly +-0:
+//   w = 0, dalpha is masked, and excl *= 1 and the sums += +-0 change no bit
+//   (a sum that starts at +0 never becomes -0). Pass 1 evaluates alpha for
+//   every entry and, where the warp's ballot of alpha > 0 is empty, skips
+//   the depth, q and the running sums; it records the ballot per (warp,
+//   entry) as a bit in shared memory. Pass 2 walks only the set bits of its
+//   warp's words. The test is alpha > 0, not the dalpha mask: at alpha ==
+//   alpha_max dalpha is masked but w, and the feature and depth terms, are
+//   not zero. Pass 1 evaluates the alphas of two entries before their
+//   ballots, so that their latencies overlap.
+// - Transposed reduction. A surviving warp sums its 18 values with halving
+//   transposes (`xsum`): a lane keeps half its values and sends the other
+//   half to lane ^ O, 9 + 5 + 3 + 2 + 1 = 20 shuffles and 20 adds instead of
+//   90 and 90; each column then sits in one lane (`xcol`). Each column's sum
+//   adds the same operands in the same pairs as the five-step butterfly, so
+//   its bits equal those of a tree per column. One store writes the 18 sums.
+// - Fewer barriers. Entries go in rounds of 32 (one ballot word); the round's
+//   partials are double-buffered in shared memory, so a round costs one
+//   block barrier (the next round writes the other buffer), and a K = 128
+//   chunk costs 2 + 4 instead of 12. The cross-warp sum of an entry reads
+//   only the warps whose bit is set, in warp order; a culled warp's partial
+//   was +-0 and leaving it out changes no bit. Partials are stored with a
+//   row stride of 19 floats, so neither the store nor the sum's reads
+//   conflict on a bank.
+// - Fewer instructions per entry: the chunk is staged entry by entry (20
+//   floats, 16-byte aligned), so an entry's 18 parameters load as five
+//   vectors, and the default K = 128 is compiled with K known (any other K
+//   takes it as an argument).
+// - Heaviest tiles first. Tiles differ in work (at keyframe 5 the most real
+//   entries a tile's replay reaches is 2.2x the mean), and a tile's block
+//   runs from start to end on one SM. So the launch first runs
+//   `tile_order_kernel`, which ranks the tiles once by reached entries into
+//   an int buffer the wrapper allocates, and block b replays the tile of
+//   rank b: the longest replays start in the first wave.
+// Alpha, the plane depth, excl, t_before and T are computed as the forward
+// pass does (-fmad=false, IEEE division, the plain version's op order:
+// `alpha_of` and `depth_of` repeat eval_alpha and eval_depth of
+// composite_common.cuh on staged values), and the gradient terms with the
+// plain version's roundings too (no __fmaf_rn), so the result is bitwise
+// that of the design with a tree per column and no cull. Each entry belongs
+// to one tile: no atomics, and every sum has a fixed order.
+//
+// Build (nvcc 12.9, sm_90a, -Xptxas -v): 58 registers a thread at K = 128,
+// 64 for any other K, no spills (__launch_bounds__(512, 2) caps it at 64);
+// 88320 bytes of shared memory a block at K = 128, where the CUDA occupancy
+// query (`composite_bwd_occupancy`) gives 2 blocks of 512 threads per SM.
+// The design with a tree per column had 63 registers. The ordering kernel
+// has 22 registers and takes about 9 us a launch at 512 tiles.
 #include "composite_common.cuh"
 
 namespace composite {
 
-constexpr int kSub = 32;  // most entries per block-wide reduction round
+constexpr int kSub = 32;                   // most entries per round: one ballot word
+constexpr int kRedStride = kUsedRows + 1;  // floats per (warp, entry) partial row
+constexpr int kEntryStride = 20;           // floats per staged entry: rows 0..17, 16-byte aligned
+constexpr int kScan = 2;                   // entries pass 1 evaluates alpha for together
 
-__global__ void __launch_bounds__(512)
+// Stage rows 0..17 of chunk `chunk` entry by entry, sh[k * kEntryStride +
+// row], so that one entry's parameters load as five vectors; the caller
+// synchronizes before and after.
+__device__ __forceinline__ void load_chunk_by_entry(float* sh, const float* __restrict__ entries,
+                                                    long long e_total, int start, int chunk,
+                                                    int kchunk) {
+  const float* src = entries + start + (long long)chunk * kchunk;
+  for (int idx = threadIdx.x; idx < kUsedRows * kchunk; idx += blockDim.x) {
+    const int r = idx / kchunk;
+    const int k = idx - r * kchunk;
+    sh[k * kEntryStride + r] = src[(long long)r * e_total + k];
+  }
+}
+
+// eval_alpha and eval_depth of composite_common.cuh on staged values, with
+// the same operations in the same order
+__device__ __forceinline__ float alpha_of(float ca, float cb, float cc, float op, float dx,
+                                          float dy, const Cfg& c, float* ex) {
+  const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+  *ex = expf(fminf(fmaxf(power, kPowerFloor), 0.0f));
+  const float a = fminf(op * *ex, c.alpha_max);
+  return a >= c.alpha_cut ? a : 0.0f;
+}
+
+__device__ __forceinline__ PlaneDepth depth_of(float4 plane, float dz, float px, float py,
+                                               const Cfg& c) {
+  const float denom = plane.x * px + plane.y * py + plane.z;
+  const bool ok = fabsf(denom) > 1e-8f;
+  PlaneDepth d;
+  d.inv_denom = 1.0f / (ok ? denom : 1.0f);
+  d.t_raw = plane.w * d.inv_denom;
+  const float lo = c.depth_lo * dz;
+  const float hi = c.depth_hi * dz;
+  d.t = ok ? fminf(fmaxf(d.t_raw, lo), hi) : dz;
+  d.inside = ok && d.t_raw > lo && d.t_raw < hi;
+  return d;
+}
+
+// One staged entry's parameters: rows 4i..4i+3 in v[i], conf and dz in w.
+struct Staged {
+  float4 v[4];
+  float2 w;
+};
+
+__device__ __forceinline__ Staged staged_at(const float* sh, int k) {
+  const float4* e = reinterpret_cast<const float4*>(sh + k * kEntryStride);
+  Staged s;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s.v[i] = e[i];
+  s.w = *reinterpret_cast<const float2*>(e + 4);
+  return s;
+}
+
+// alpha of entry k at (dx, dy) from its first eight rows
+__device__ __forceinline__ float staged_alpha(const float4& m, const float4& o, float px, float py,
+                                              const Cfg& c, float* dx, float* dy, float* ex) {
+  *dx = px - m.x;
+  *dy = py - m.y;
+  return alpha_of(m.z, m.w, o.x, o.y, *dx, *dy, c, ex);
+}
+
+// feat_dot: sum of the 7 composited features times g, in the same order
+__device__ __forceinline__ float staged_feat_dot(const Staged& s, const float* g) {
+  float f = 0.0f;
+  f += s.v[1].z * g[0];
+  f += s.v[1].w * g[1];
+  f += s.v[2].x * g[2];
+  f += s.v[2].y * g[3];
+  f += s.v[2].z * g[4];
+  f += s.v[2].w * g[5];
+  return f + s.w.x * g[6];
+}
+
+// Warp sums of the N per-lane values v by halving transposes: at the step of
+// offset O a lane keeps one half of its values and sends the other half to
+// lane ^ O, ceil(N/2) shuffles a step. Lane L returns the sum of column
+// xcol<N, O>(L) (0 for a pad column).
+template <int N, int O>
+__device__ __forceinline__ float xsum(const float (&v)[N], int lane) {
+  constexpr int H = (N + 1) / 2;
+  const bool up = (lane & O) != 0;
+  float r[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float lo = v[j];
+    const float hi = j + H < N ? v[j + H < N ? j + H : 0] : 0.0f;
+    r[j] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+  }
+  if constexpr (O == 1) {
+    static_assert(H == 1, "xsum: N must halve to one value in the warp's five steps");
+    return r[0];
+  } else {
+    return xsum<H, O / 2>(r, lane);
+  }
+}
+
+// the column whose sum lane L holds after xsum<N, O>, or -1 for a pad
+template <int N, int O>
+__device__ __forceinline__ int xcol(int lane) {
+  constexpr int H = (N + 1) / 2;
+  int c = 0;
+  if constexpr (O > 1) c = xcol<H, O / 2>(lane);
+  if (c < 0) return -1;
+  c += (lane & O) ? H : 0;
+  return c < N ? c : -1;
+}
+
+// The order in which the replay's blocks take the tiles: tiles by the real
+// entries their replay reaches, min(tile_len, stop * K), most first (ties by
+// index), so that the longest replays start in the first wave. One thread a
+// tile counts the tiles ahead of it, reading every tile's count through
+// shared memory a block's width at a time: order[rank] = tile.
+__global__ void tile_order_kernel(const int* __restrict__ tile_len,
+                                  const float* __restrict__ out_fwd, int num_tiles, int npix,
+                                  int kchunk, int* __restrict__ order) {
+  extern __shared__ int wsh[];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stop_row = (long long)kOutRows * npix;
+  const int w = t < num_tiles ? min(tile_len[t], (int)out_fwd[t * stop_row + 9 * npix] * kchunk) : 0;
+  int rank = 0;
+  for (int u0 = 0; u0 < num_tiles; u0 += blockDim.x) {
+    __syncthreads();  // the previous stretch is read
+    const int u = u0 + threadIdx.x;
+    if (u < num_tiles) wsh[threadIdx.x] = min(tile_len[u], (int)out_fwd[u * stop_row + 9 * npix] * kchunk);
+    __syncthreads();
+    const int m = min((int)blockDim.x, num_tiles - u0);
+    for (int j = 0; j < m; ++j) {
+      const int wu = wsh[j];
+      rank += (wu > w) | ((wu == w) & (u0 + j < t));
+    }
+  }
+  if (t < num_tiles) order[rank] = t;
+}
+
+// KT: the chunk K at compile time, or 0 to take `kchunk_arg`
+template <int KT>
+__global__ void __launch_bounds__(512, 2)
 bwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
            const float* __restrict__ out_fwd, const float* __restrict__ gout,
-           float* __restrict__ dentries, int ntx, int tile_w, int tile_h, int kchunk, Cfg cfg) {
-  extern __shared__ float smem[];
-  float* sh = smem;                        // [kUsedRows][kchunk]
-  float* red = smem + kUsedRows * kchunk;  // [nwarps][kUsedRows][sub]
+           const int* __restrict__ order, float* __restrict__ dentries, int ntx, int tile_w,
+           int tile_h, int kchunk_arg, Cfg cfg) {
+  const int kchunk = KT > 0 ? KT : kchunk_arg;
   const int sub = kchunk < kSub ? kchunk : kSub;
-  const Tile tl = tile_of(tile_start, tile_len, ntx, tile_w, tile_h, kchunk);
+  const int nsub = kchunk / sub;
   const int npix = blockDim.x;
+  const int nwarps = npix >> 5;
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);  // [kchunk][kEntryStride]
+  float* red = sh + kEntryStride * kchunk;        // [2][nwarps][sub][kRedStride]
+  const int red_half = nwarps * sub * kRedStride;
+  unsigned* live = reinterpret_cast<unsigned*>(red + 2 * red_half);  // [nwarps][nsub]
+  const int tile = order[blockIdx.x];
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int nwarps = npix >> 5;
-  const long long tile_off = (long long)blockIdx.x * kOutRows * npix;
+  const int col = xcol<kUsedRows, 16>(lane);
+  const int start = tile_start[tile];
+  const float px = (float)((tile % ntx) * tile_w + p % tile_w) + 0.5f;
+  const float py = (float)((tile / ntx) * tile_h + p / tile_w) + 0.5f;
+  const long long tile_off = (long long)tile * kOutRows * npix;
   const int stop = (int)out_fwd[tile_off + 9 * npix];
 
   const float* g = gout + tile_off + p;
@@ -72,40 +270,60 @@ bwd_kernel(const float* __restrict__ entries, long long e_total,
 
   for (int i = stop - 1; i >= 0; --i) {
     __syncthreads();  // the previous chunk's shared reads are done
-    load_chunk(sh, entries, e_total, tl.start, i, kchunk);
+    load_chunk_by_entry(sh, entries, e_total, start, i, kchunk);
     __syncthreads();
 
-    // pass 1: the chunk's total product and sum of alpha * excl * q
+    // pass 1: the chunk's total product and sum of alpha * excl * q, and
+    // the ballot of alpha > 0 of each (warp, entry)
     float excl = 1.0f;
     float u_sum = 0.0f;
-    for (int k = 0; k < kchunk; ++k) {
-      const float dx = tl.px - sh[kMeanX * kchunk + k];
-      const float dy = tl.py - sh[kMeanY * kchunk + k];
-      float ex;
-      const float alpha = eval_alpha(sh, kchunk, k, dx, dy, cfg, &ex);
-      const PlaneDepth d = eval_depth(sh, kchunk, k, tl.px, tl.py, cfg);
-      const float q = feat_dot(sh, kchunk, k, gf) + d.t * g_depth;
-      u_sum += alpha * excl * q;
-      excl *= 1.0f - alpha;
+    for (int r = 0; r < nsub; ++r) {
+      unsigned word = 0;
+      for (int k0 = 0; k0 < sub; k0 += kScan) {
+        // the alphas of kScan entries first, so that their latencies overlap
+        float alpha[kScan];
+#pragma unroll
+        for (int j = 0; j < kScan; ++j) {
+          alpha[j] = 0.0f;  // past the round: no lane live
+          if (k0 + j < sub) {
+            const float4* e = reinterpret_cast<const float4*>(sh + (r * sub + k0 + j) * kEntryStride);
+            float dx, dy, ex;
+            alpha[j] = staged_alpha(e[0], e[1], px, py, cfg, &dx, &dy, &ex);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kScan; ++j) {
+          if (__ballot_sync(0xffffffffu, alpha[j] > 0.0f) == 0u) continue;
+          word |= 1u << (k0 + j);
+          const Staged s = staged_at(sh, r * sub + k0 + j);
+          const PlaneDepth d = depth_of(s.v[3], s.w.y, px, py, cfg);
+          const float q = staged_feat_dot(s, gf) + d.t * g_depth;
+          u_sum += alpha[j] * excl * q;
+          excl *= 1.0f - alpha[j];
+        }
+      }
+      if (lane == 0) live[warp * nsub + r] = word;
     }
+    __syncwarp();
     const float t_before = t_after / fmaxf(excl, 1e-30f);
     const float tot_wq = t_before * u_sum;
 
-    // pass 2: per-pair gradients, reduced per entry in rounds of `sub`
+    // pass 2: per-pair gradients of the warp's live entries, one round of
+    // `sub` entries per ballot word
     excl = 1.0f;
     float incl = 0.0f;
-    for (int k0 = 0; k0 < kchunk; k0 += sub) {
-      for (int kk = 0; kk < sub; ++kk) {
-        const int k = k0 + kk;
-        const float dx = tl.px - sh[kMeanX * kchunk + k];
-        const float dy = tl.py - sh[kMeanY * kchunk + k];
-        float ex;
-        const float alpha = eval_alpha(sh, kchunk, k, dx, dy, cfg, &ex);
-        const PlaneDepth d = eval_depth(sh, kchunk, k, tl.px, tl.py, cfg);
+    for (int r = 0; r < nsub; ++r) {
+      float* buf = red + (r & 1) * red_half;
+      for (unsigned word = live[warp * nsub + r]; word != 0u; word &= word - 1u) {
+        const int kk = __ffs(word) - 1;
+        const Staged s = staged_at(sh, r * sub + kk);
+        float dx, dy, ex;
+        const float alpha = staged_alpha(s.v[0], s.v[1], px, py, cfg, &dx, &dy, &ex);
+        const PlaneDepth d = depth_of(s.v[3], s.w.y, px, py, cfg);
         const float one_m = 1.0f - alpha;
         const float t_k = t_before * excl;
         const float w = alpha * t_k;
-        const float q = feat_dot(sh, kchunk, k, gf) + d.t * g_depth;
+        const float q = staged_feat_dot(s, gf) + d.t * g_depth;
         incl += w * q;
         const float suffix = s_q + (tot_wq - incl);  // entries after k
         float dalpha = t_k * q - (suffix + gtf) * (1.0f / fmaxf(one_m, 0.01f));
@@ -116,77 +334,116 @@ bwd_kernel(const float* __restrict__ entries, long long e_total,
         const float wgd = w * g_depth;
         const float com = d.inside ? wgd * d.inv_denom : 0.0f;
         const float u = com * d.t_raw;
-        float v[kUsedRows] = {
+        const float v[kUsedRows] = {
             t1, t2, t1 * dx, t1 * dy, t2 * dy, dalpha * ex,
             w * gf[0], w * gf[1], w * gf[2], w * gf[3], w * gf[4], w * gf[5],
-            -(u * tl.px), -(u * tl.py), -u, com, w * gf[6],
+            -(u * px), -(u * py), -u, com, w * gf[6],
             d.inside ? 0.0f : wgd * d.t,
         };
-#pragma unroll
-        for (int j = 0; j < kUsedRows; ++j) {
-          const float s = warp_sum(v[j]);
-          if (lane == 0) red[(warp * kUsedRows + j) * sub + kk] = s;
-        }
+        const float sum = xsum<kUsedRows, 16>(v, lane);
+        if (col >= 0) buf[(warp * sub + kk) * kRedStride + col] = sum;
         excl *= one_m;
       }
-      __syncthreads();
-      // sum the warps' partials into warp 0's slots
+      __syncthreads();  // the round's partials are written
+      // sum the live warps' partials in warp order, then the gradient
+      // columns: mean x/y, conic a/b/c, opacity, rgb, normal, plane A/B/C/D,
+      // confidence, center depth
+      float* dst = dentries + start + (long long)i * kchunk + r * sub;
       for (int idx = p; idx < kUsedRows * sub; idx += npix) {
-        float s = 0.0f;
-        for (int wi = 0; wi < nwarps; ++wi) s += red[wi * kUsedRows * sub + idx];
-        red[idx] = s;
-      }
-      __syncthreads();
-      // gradient columns: mean x/y, conic a/b/c, opacity, rgb, normal,
-      // plane A/B/C/D, confidence, center depth
-      float* dst = dentries + tl.start + (long long)i * kchunk + k0;
-      for (int idx = p; idx < kUsedRows * sub; idx += npix) {
-        const int r = idx / sub;
-        const int kk = idx - r * sub;
-        const int k = k0 + kk;
-        const float* s = red + kk;  // s[j * sub] = column sum j
-        float val;
-        switch (r) {
-          case 0: val = sh[kConA * kchunk + k] * s[0] + sh[kConB * kchunk + k] * s[sub]; break;
-          case 1: val = sh[kConB * kchunk + k] * s[0] + sh[kConC * kchunk + k] * s[sub]; break;
-          case 2: val = -0.5f * s[2 * sub]; break;
-          case 3: val = -s[3 * sub]; break;
-          case 4: val = -0.5f * s[4 * sub]; break;
-          case 17: val = s[17 * sub] / fmaxf(sh[kDepthZ * kchunk + k], 1e-30f); break;
-          default: val = s[r * sub];
+        const int j = idx / sub;
+        const int kk = idx - j * sub;
+        const float* e = sh + (r * sub + kk) * kEntryStride;
+        const int j0 = j < 2 ? 0 : j;  // columns 0 and 1 both need sums 0 and 1
+        float s0 = 0.0f;
+        float s1 = 0.0f;
+        for (int wi = 0; wi < nwarps; ++wi) {
+          if (!((live[wi * nsub + r] >> kk) & 1u)) continue;
+          const float* b = buf + (wi * sub + kk) * kRedStride;
+          s0 += b[j0];
+          if (j < 2) s1 += b[1];
         }
-        dst[(long long)r * e_total + kk] = val;
+        float val;
+        switch (j) {
+          case 0: val = e[kConA] * s0 + e[kConB] * s1; break;
+          case 1: val = e[kConB] * s0 + e[kConC] * s1; break;
+          case 2: val = -0.5f * s0; break;
+          case 3: val = -s0; break;
+          case 4: val = -0.5f * s0; break;
+          case 17: val = s0 / fmaxf(e[kDepthZ], 1e-30f); break;
+          default: val = s0;
+        }
+        dst[(long long)j * e_total + kk] = val;
       }
-      __syncthreads();  // `red` is reused by the next round
+      // no barrier here: the next round writes the other buffer, and the
+      // round after it passes the next round's barrier first
     }
     t_after = t_before;
     s_q += tot_wq;
   }
 }
 
+// dynamic shared memory of a block: the staged chunk, two rounds of
+// partials and the ballot words
+inline int smem_bytes(int tile_pixels, int kchunk) {
+  const int sub = kchunk < kSub ? kchunk : kSub;
+  const int nwarps = tile_pixels / 32;
+  return (kEntryStride * kchunk + 2 * nwarps * sub * kRedStride) * (int)sizeof(float) +
+         nwarps * (kchunk / sub) * (int)sizeof(unsigned);
+}
+
+// the instance for chunk K: the default K = 128 with K known at compile
+// time, any other K from its argument
+using Kernel = decltype(&bwd_kernel<0>);
+inline Kernel kernel_for(int kchunk) { return kchunk == 128 ? bwd_kernel<128> : bwd_kernel<0>; }
+
+constexpr int kOrderThreads = 256;
+
 }  // namespace composite
 
+// `order` is scratch of num_tiles ints: the ordering kernel writes it, the
+// replay reads it.
 extern "C" int composite_bwd_launch(const float* entries, long long e_total,
                                     const int* tile_start, const int* tile_len,
                                     const float* out_fwd, const float* gout, float* dentries,
-                                    int num_tiles, int ntx, int tile_w, int tile_h, int kchunk,
-                                    float alpha_cut, float alpha_max, float term_eps,
+                                    int* order, int num_tiles, int ntx, int tile_w, int tile_h,
+                                    int kchunk, float alpha_cut, float alpha_max, float term_eps,
                                     float depth_lo, float depth_hi, void* stream) {
   if (num_tiles == 0) return 0;
   if (kchunk % (kchunk < composite::kSub ? kchunk : composite::kSub))
     return (int)cudaErrorInvalidValue;
-  const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
-  const int nwarps = tile_w * tile_h / 32;
-  const int smem = (composite::kUsedRows * kchunk +
-                    nwarps * composite::kUsedRows * composite::kSub) *
-                   (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      composite::bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int npix = tile_w * tile_h;
+  const int nt = composite::kOrderThreads;
+  composite::tile_order_kernel<<<(num_tiles + nt - 1) / nt, nt, nt * (int)sizeof(int), st>>>(
+      tile_len, out_fwd, num_tiles, npix, kchunk, order);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  composite::bwd_kernel<<<num_tiles, tile_w * tile_h, smem, (cudaStream_t)stream>>>(
-      entries, e_total, tile_start, tile_len, out_fwd, gout, dentries, ntx, tile_w, tile_h,
-      kchunk, cfg);
+  const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
+  const composite::Kernel kernel = composite::kernel_for(kchunk);
+  const int smem = composite::smem_bytes(npix, kchunk);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<num_tiles, npix, smem, st>>>(entries, e_total, tile_start, tile_len, out_fwd, gout,
+                                        order, dentries, ntx, tile_w, tile_h, kchunk, cfg);
   return (int)cudaGetLastError();
+}
+
+// What the build gives the replay kernel that a launch at this tile size
+// and K runs: registers and local (spill) bytes a thread, dynamic shared
+// bytes a block, and the blocks an SM holds (the CUDA occupancy query).
+extern "C" int composite_bwd_occupancy(int tile_pixels, int kchunk, int* registers,
+                                       int* local_bytes, int* smem_bytes, int* blocks_per_sm) {
+  const composite::Kernel kernel = composite::kernel_for(kchunk);
+  const int smem = composite::smem_bytes(tile_pixels, kchunk);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *smem_bytes = smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, tile_pixels, smem);
 }
 
 COMPOSITE_EXPORT_ERRSTR(composite_bwd)

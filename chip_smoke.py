@@ -31,6 +31,15 @@ just before it and read just after:
    once per candidate, and holds one plan step's candidate utilities
    through the kernel against those through the plain forward version.
 
+Path 1 also prints the share of (entry, 32-pixel row) pairs that the
+backward kernel's warp cull keeps, from a plain PyTorch pass on the same
+inputs. With `--bwd-parent DIR` (a `git archive` of the parent commit in a
+git-ignored directory) it then imports DIR's compositor beside this one,
+calls each backward wrapper on the keyframe-5 view, checks their gradients
+bitwise equal, prints what each build gives and each call's device time
+by kernel, and times the two in turns (parent, change, change, parent, 4
+times) in this process.
+
 It prints a `kernels` JSON line, the card's name and power limit, and ends
 with one JSON line {"ok": true, "device": {...}}. It exits non-zero, with no
 result, when there is no CUDA device, when the port is not beside it, or
@@ -39,12 +48,19 @@ when any check fails. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
+import importlib
+import importlib.util
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import torch
@@ -182,7 +198,9 @@ def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def compare(state, buf, cfg, rcfg):
     """Path 1, checks: kernels against plain versions at the main path's shapes.
     Returns ({kernel: max abs error}, {kernel: (kernel call, plain call,
-    (entry, pixel) pairs reached, bytes moved)})."""
+    (entry, pixel) pairs reached, bytes moved)}, the share of (entry,
+    32-pixel row) pairs that the backward kernel's cull keeps, the backward
+    wrapper's arguments)."""
     from activegs_torch.mapping import gaussians as gm
     from activegs_torch.mapping import keyframes as kf
     from activegs_torch.mapping import trainer
@@ -245,6 +263,11 @@ def compare(state, buf, cfg, rcfg):
     res["composite_bwd"] = float((d_k - d_p).abs().max())
     print(f"bwd: per-entry grads max abs err {res['composite_bwd']:.3g} (scaled {scaled_err(d_k, d_p):.3g})")
     check(scaled_err(d_k, d_p) <= 3e-4, "bwd kernel per-entry grads disagree with its plain version")
+    live, rows = cp.live_warp_rows(ent, b.tile_start, b.tile_len, o_k[:, O_STOP, 0], ntx, rcfg)
+    reached = torch.minimum(b.tile_len.long(), o_k[:, O_STOP, 0].long() * rcfg.chunk)
+    print(f"bwd cull: {live} of {rows} (entry, 32-pixel row) pairs of the real entries in the reached chunks "
+          f"have some alpha > 0 (share {live / rows:.4f}; plain PyTorch on the same inputs); real entries "
+          f"reached per tile: mean {float(reached.float().mean()):.1f}, max {int(reached.max())}")
 
     # stats, on post_process's front-only stream with its depth mask
     p2s, _, dzs, ivs = pp.preprocess(attrs, cam, shape, rcfg, front_only=True)
@@ -317,7 +340,7 @@ def compare(state, buf, cfg, rcfg):
             18 * ent_s.shape[1] * 4 + mask.numel() * 4 + 2 * ent_s.shape[1] * 4,
         ),
     }
-    return res, inputs
+    return res, inputs, live / rows, (ent, b.tile_start, b.tile_len, o_k, gout, ntx, rcfg)
 
 
 def time_ms(fn, n: int) -> float:
@@ -436,6 +459,104 @@ def measured_rate_bound_ms(name: str, pairs: int, tops: dict) -> float:
     return pairs * per_pair * 1e-12 * 1e3
 
 
+def ptxas_usage(log: str) -> dict[str, tuple[int, int]]:
+    """{kernel function: (registers a thread, spill bytes stored)} from a
+    build log of nvcc -Xptxas -v."""
+    usage, name, spills = {}, None, 0
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spills = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spills = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            usage[name] = (int(m.group(1)), spills)
+    return usage
+
+
+def import_composite(root: Path, package: str):
+    """`render.composite` of the port checked out at `root`, imported as
+    package `package` beside this checkout's, with its own kernel builds."""
+    pkg_dir = Path(root).resolve() / "activegs_torch"
+    spec = importlib.util.spec_from_file_location(package, pkg_dir / "__init__.py",
+                                                  submodule_search_locations=[str(pkg_dir)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[package] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(f"{package}.render.composite")
+
+
+def bwd_build(comp, rcfg) -> str:
+    """What the build of the backward kernel that `comp` (a composite
+    module) launches gives at these shapes: registers and local bytes a
+    thread, shared bytes a block and blocks per SM from the library's own
+    occupancy query where it exports one, else registers and spills from
+    its ptxas log."""
+    lib = ctypes.CDLL(str(comp.bwd_kernel.library))
+    if not hasattr(lib, "composite_bwd_occupancy"):
+        usage = ptxas_usage(comp.bwd_kernel.library.with_suffix(".log").read_text())
+        return "; ".join(f"{f}: {r} registers, {sp} bytes spilled (ptxas)" for f, (r, sp) in usage.items()) + \
+            "; blocks per SM not measured (the build exports no occupancy query)"
+    fn = lib.composite_bwd_occupancy
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(4)]
+    code = fn(rcfg.tile_pixels, rcfg.chunk, *(ctypes.byref(v) for v in vals))
+    check(code == 0, f"composite_bwd_occupancy: CUDA error {code}")
+    regs, local, smem, blocks = (v.value for v in vals)
+    return (f"{regs} registers and {local} local bytes a thread, {smem} bytes of shared memory a block, "
+            f"{blocks} blocks of {rcfg.tile_pixels} threads per SM (the library's CUDA occupancy query)")
+
+
+def device_ms_by_kernel(fn, n: int) -> str:
+    """Device time per call of each CUDA kernel (and memset) that `fn`
+    launches: the mean over `n` calls, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.key, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()]
+    times = [(k, t / n / 1e3) for k, t in times if t > 0]
+    if not times:
+        return "not measured (the trace holds no device time)"
+    return ", ".join(f"{k} {t:.4f} ms" for k, t in sorted(times, key=lambda kt: -kt[1]))
+
+
+def bwd_in_turns(bwd_args, parent: str, rcfg, rounds: int = 4) -> None:
+    """The backward kernel of the checkout `parent` (a `git archive` of the
+    parent commit) against this checkout's, each through its own wrapper on
+    the same inputs (`bwd_args`, the keyframe-5 view): checks the two
+    outputs bitwise equal, prints what each build gives and each call's
+    device time by kernel, then times them in turns, parent, change,
+    change, parent, `rounds` times, each a median of TIMED_LAUNCHES calls."""
+    from activegs_torch.render import composite as cp
+
+    check((Path(parent) / "activegs_torch" / "render" / "csrc" / "composite_bwd.cu").exists(),
+          f"no backward kernel source under {parent}")
+    comp = {"parent": import_composite(Path(parent), "_bwd_parent_activegs_torch"), "change": cp}
+    # the library's name carries the digest of its sources
+    check(comp["parent"].bwd_kernel.library.name != cp.bwd_kernel.library.name,
+          "the parent's backward kernel source is this one")
+    calls = {side: (lambda m=m: m.composite_bwd(*bwd_args)) for side, m in comp.items()}
+    outs = {side: call() for side, call in calls.items()}
+    same = torch.equal(outs["parent"], outs["change"])
+    print(f"bwd A/B: the two kernels' per-entry gradients bitwise equal: {same}")
+    check(same, "the backward kernel's gradients differ from the parent kernel's")
+    for side in comp:
+        print(f"bwd A/B {side} build: {bwd_build(comp[side], rcfg)}")
+        print(f"bwd A/B {side} device time a call: {device_ms_by_kernel(calls[side], TIMED_LAUNCHES)}")
+    times = {"parent": [], "change": []}
+    for _ in range(rounds):
+        for side in ("parent", "change", "change", "parent"):
+            times[side].append(time_ms(calls[side], TIMED_LAUNCHES))
+    for side, ts in times.items():
+        print(f"bwd A/B {side}: median {statistics.median(ts):.4f} ms over {len(ts)} turns (each a median of "
+              f"{TIMED_LAUNCHES} calls), range {min(ts):.4f}-{max(ts):.4f} ms, in order "
+              + " ".join(f"{t:.4f}" for t in ts))
+
+
 def mission_phase(dev):
     """Path 3: a confidence-planner mission of MISSION_STEPS steps through
     `IncrementalMapper`, the compositor counters zeroed before and read
@@ -533,6 +654,10 @@ def utility_check(mapper) -> None:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--bwd-parent", metavar="DIR",
+                        help="also time the backward kernel of the checkout DIR against this one's, in turns")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
     try:
@@ -549,13 +674,12 @@ def main() -> None:
     logs = _build.build_all([(k.csrc, k.source) for k in all_kernels])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(logs)} compiled)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for func, (regs, spills) in ptxas_usage(log).items():
+            print(f"  {name}: {func}: {regs} registers, {spills} bytes spilled")
 
     dev = torch.device("cuda")
     state, buf, map_launches, cfg, rcfg = main_path(dev)
-    errs, inputs = compare(state, buf, cfg, rcfg)
+    errs, inputs, live_share, bwd_args = compare(state, buf, cfg, rcfg)
     del state, buf
     probes, tops = probe_phase(dev)
     mission_launches, mapper = mission_phase(dev)
@@ -582,6 +706,7 @@ def main() -> None:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "measured_rate_bound_ms": measured,
+            **({"live_row_share": live_share} if name == "composite_bwd" else {}),
             "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name]},
         })
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms data sheet, "
@@ -590,6 +715,8 @@ def main() -> None:
               f"{mission_launches[name]} in the {MISSION_STEPS}-step mission")
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
+    if args.bwd_parent:
+        bwd_in_turns(bwd_args, args.bwd_parent, rcfg)
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

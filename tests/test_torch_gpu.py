@@ -54,16 +54,55 @@ def scene(dev, n=256, seed=2):
     )
 
 
+def small_surfel_scene(dev, n=900, seed=5):
+    """Seeded scene that corners the backward kernel's warp cull: an opaque
+    wall of opacity-1 surfels over the left tiles (alpha reaches alpha_max
+    near their centers, and those tiles stop early), behind it small
+    surfels that cover 3-4 pixel rows each (most (entry, 32-pixel row)
+    pairs have no alpha > 0), some of opacity just above and just below
+    the 1/255 alpha cut."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.linspace(-0.95, 0.1, 10), np.linspace(-0.95, 0.95, 17))
+    nw = gx.size
+    wall = np.stack([gx.ravel(), gy.ravel(), np.ones(nw)], 1)
+    small = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n), rng.uniform(1.2, 3.0, n)], 1)
+    means = np.concatenate([wall, small])
+    normals = np.tile([0.0, 0.0, -1.0], (nw + n, 1))
+    normals[nw:] += rng.normal(scale=0.2, size=(n, 3))
+    scales = np.concatenate([np.full((nw, 2), 0.12), rng.uniform(0.004, 0.02, (n, 2))])
+    scales = np.concatenate([scales, np.full((nw + n, 1), 1e-6)], 1)
+    cut = tt.RasterConfig().alpha_cut
+    opac = np.concatenate([np.ones(nw), rng.choice([1.0, 0.7, 0.3, 0.05, 1.05 * cut, 0.999 * cut], n)])
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    q, _ = quat.normal_to_quaternion(t(normals))
+    return tt.GaussianAttrs(
+        means=t(means), scales=t(scales), rotations=q, opacities=t(opac),
+        colors=t(rng.uniform(0, 1, (nw + n, 3))), confidences=t(rng.uniform(0, 1, nw + n)),
+        valid=torch.ones(nw + n, dtype=torch.bool, device=dev),
+    )
+
+
+def scene_entries(attrs, cfg, dev):
+    """(entries, tile_start, tile_len), ntx of `attrs` seen by the identity camera."""
+    cam = tt.Camera(torch.eye(4, device=dev), geo.intrinsics_from_fov(60.0, 60.0, device=dev))
+    p2d, _, dz, iv = pp.preprocess(attrs, cam, SHAPE, cfg)
+    b = binning.bin_entries(p2d, dz, iv, SHAPE, cfg)
+    _, _, ntx, _ = binning.bin_tile_dims(SHAPE, cfg)
+    return (renderer.gather_entries(p2d, b.gid), b.tile_start, b.tile_len), ntx
+
+
+def assert_bwd_rows_close(d_k, d_p):
+    """Each gradient row within 3e-4 of its largest plain value."""
+    for r in range(tt.USED_ROWS):
+        assert float((d_k[r] - d_p[r]).abs().max()) <= 3e-4 * float(d_p[r].abs().max()) + 1e-12, r
+    assert not d_k[tt.USED_ROWS :].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg_id", list(CFGS))
 def test_kernels_match_plain(cuda, cfg_id):
     cfg = CFGS[cfg_id]
-    cam = tt.Camera(torch.eye(4, device=cuda), geo.intrinsics_from_fov(60.0, 60.0, device=cuda))
-    p2d, _, dz, iv = pp.preprocess(scene(cuda), cam, SHAPE, cfg)
-    b = binning.bin_entries(p2d, dz, iv, SHAPE, cfg)
-    ent = renderer.gather_entries(p2d, b.gid)
-    _, _, ntx, _ = binning.bin_tile_dims(SHAPE, cfg)
-    args = (ent, b.tile_start, b.tile_len)
+    args, ntx = scene_entries(scene(cuda), cfg, cuda)
     o_k = cp.composite_fwd(*args, ntx, cfg)
     o_p = cp.composite_fwd_plain(*args, ntx, cfg)
     torch.cuda.synchronize()
@@ -74,15 +113,69 @@ def test_kernels_match_plain(cuda, cfg_id):
     g = torch.randn_like(o_k)
     d_k = cp.composite_bwd(*args, o_k, g, ntx, cfg)
     d_p = cp.composite_bwd_plain(*args, o_k, g, ntx, cfg)
-    for r in range(tt.USED_ROWS):
-        assert float((d_k[r] - d_p[r]).abs().max()) <= 3e-4 * float(d_p[r].abs().max()) + 1e-12, r
-    assert not d_k[tt.USED_ROWS :].any()
-    m = (torch.rand(len(b.tile_start), cfg.tile_pixels, device=cuda) > 0.3).float()
+    assert_bwd_rows_close(d_k, d_p)
+    m = (torch.rand(len(args[1]), cfg.tile_pixels, device=cuda) > 0.3).float()
     i_k, c_k = cp.composite_stats(*args, m, 0.03, ntx, cfg)
     i_p, c_p = cp.composite_stats_plain(*args, m, 0.03, ntx, cfg)
     assert float((i_k - i_p).abs().max()) <= 1e-5 * float(i_p.abs().max())
     assert int((c_k != c_p).sum()) <= 2  # only where some w * mask meets 0.03 within rounding
     assert all(k.launches > 0 for k in cp.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_id", list(CFGS))
+def test_bwd_kernel_cull_matches_plain(cuda, cfg_id):
+    """The backward kernel on a scene where most (entry, 32-pixel row)
+    pairs are culled and the rest survive: tiles that stop early, alpha at
+    exactly alpha_max and at the 1/255 cut, pad entries. Each gradient row
+    within 3e-4 of its largest plain value, and five launches bitwise
+    equal."""
+    cfg = CFGS[cfg_id]
+    args, ntx = scene_entries(small_surfel_scene(cuda), cfg, cuda)
+    out = cp.composite_fwd(*args, ntx, cfg)
+    stop = out[:, tt.O_STOP, 0]
+    live, rows = cp.live_warp_rows(*args, stop, ntx, cfg)
+    assert 0 < live < rows // 2
+    assert bool((stop < (args[2] + cfg.chunk - 1) // cfg.chunk).any())
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g[:, tt.O_TRANS + 1 :] = 0.0
+    n0 = cp.bwd_kernel.launches
+    runs = [cp.composite_bwd(*args, out, g, ntx, cfg) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert cp.bwd_kernel.launches == n0 + 5
+    assert_bwd_rows_close(runs[0], cp.composite_bwd_plain(*args, out, g, ntx, cfg))
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.cuda
+def test_bwd_tile_order_puts_the_most_reached_entries_first(cuda):
+    """The backward launch's ordering kernel, on more tiles than one of its
+    blocks holds: `order` lists every tile once, by the real entries its
+    replay reaches, min(tile_len, stop * K), most first, ties by index."""
+    cfg = CFGS["k128"]
+    k, t_n, ntx = cfg.chunk, 700, 28
+    gen = torch.Generator().manual_seed(3)
+    tile_len = torch.randint(0, 5 * k, (t_n,), generator=gen, dtype=torch.int32)
+    tile_len[::7] = 2 * k  # ties
+    nch = (tile_len.long() + k - 1) // k
+    stop = torch.minimum(torch.randint(0, 6, (t_n,), generator=gen), nch)
+    tile_start = torch.cumsum(nch * k, 0) - nch * k
+    e = int((nch * k).sum())
+    entries = torch.zeros((tt.PARAM_DIM, e), device=cuda)  # opacity 0: no alpha > 0
+    out = torch.zeros((t_n, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
+    out[:, tt.O_STOP] = stop.float()[:, None].to(cuda)
+    gout = torch.zeros_like(out)
+    dentries = torch.zeros_like(entries)
+    order = torch.full((t_n,), -1, dtype=torch.int32, device=cuda)
+    ts, tl = tile_start.to(cuda, torch.int32), tile_len.to(cuda)
+    cp.bwd_kernel.launch(
+        entries.data_ptr(), e, ts.data_ptr(), tl.data_ptr(), out.data_ptr(), gout.data_ptr(),
+        dentries.data_ptr(), order.data_ptr(), t_n, *cp._tail(ntx, cfg, cuda),
+    )
+    torch.cuda.synchronize()
+    expect = torch.sort(-torch.minimum(tile_len.long(), stop * k), stable=True).indices
+    assert torch.equal(order.cpu().long(), expect)
+    assert not dentries.any()
 
 
 @pytest.mark.cuda
