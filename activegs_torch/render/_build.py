@@ -4,8 +4,8 @@ libraries, and bind them.
 Each `<csrc>/<name>.cu` is compiled on its own by nvcc for sm_90a, strict
 fp32 (no --use_fast_math, no FMA contraction, IEEE division and expf), into
 `<repo>/build/kernels/<name>-<digest>.so`, where the digest covers the
-sources of its directory and the flags, so an edited source rebuilds and an
-unchanged one is reused. The libraries have a plain C interface
+source, the headers of its directory that it includes, and the flags, so
+an edited source rebuilds and an unchanged one is reused. The libraries have a plain C interface
 (`<name>_launch`, `<name>_errstr`) and are loaded with ctypes. Nothing is
 built at import time: `load` builds what is missing at first use, and
 `build_all` builds a set of kernels at once, one nvcc process per source.
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -46,12 +47,33 @@ def nvcc() -> str:
     return found
 
 
-def lib_path(name: str, csrc: Path = CSRC) -> Path:
+def sources(name: str, csrc: Path = CSRC) -> list[Path]:
+    """`<csrc>/<name>.cu` and the headers of `csrc` it includes (with
+    `#include "..."`, followed into those headers), in a fixed order."""
+    found, todo = set(), [Path(csrc) / f"{name}.cu"]
+    while todo:
+        src = todo.pop()
+        if src in found:
+            continue
+        found.add(src)
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M):
+            if (Path(csrc) / inc).exists():
+                todo.append(Path(csrc) / inc)
+    return sorted(found)
+
+
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Digest of what kernel `name` of `csrc` is compiled from: its sources
+    (`sources`) and the nvcc flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(Path(csrc).glob("*.cu*")):
+    for src in sources(name, csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str, csrc: Path = CSRC) -> Path:
+    return BUILD_DIR / f"{name}-{source_digest(name, csrc)}.so"
 
 
 def build_all(sources) -> dict[str, str]:

@@ -32,7 +32,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # common tail: ntx, tile_w, tile_h, K, alpha_cut, alpha_max, term_eps,
 # depth_lo, depth_hi, stream
 _TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
-fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I] + _TAIL)
+# the forward kernel also takes the cluster size after the tile count
+fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I, _I] + _TAIL)
 bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _P, _I] + _TAIL)
 stats_kernel = CudaKernel("composite_stats", [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL)
 KERNELS = (fwd_kernel, bwd_kernel, stats_kernel)
@@ -216,10 +217,10 @@ def composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx: int, 
 
 
 def live_warp_rows(entries, tile_start, tile_len, stop, ntx: int, cfg: RasterConfig) -> tuple[int, int]:
-    """What the backward kernel's cull keeps, in plain PyTorch: of the
-    (entry, 32-pixel row) pairs of each tile's real entries in the chunks
-    it reached (`stop`, (T,)), how many have some alpha > 0. A 32-pixel row
-    is one warp of the kernel. Returns (live, all)."""
+    """What the forward and backward kernels' culls keep, in plain PyTorch:
+    of the (entry, 32-pixel row) pairs of each tile's real entries in the
+    chunks it reached (`stop`, (T,)), how many have some alpha > 0. A
+    32-pixel row is one warp of the kernels. Returns (live, all)."""
     t_n, k = tile_start.shape[0], cfg.chunk
     px, py = tile_pixel_coords(t_n, ntx, cfg, entries.device)
     stop = stop.to(torch.int64)
@@ -262,15 +263,23 @@ def composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres: flo
 # --------------------------------------------------------------------------
 
 
+def fwd_cluster_size(cfg: RasterConfig) -> int:
+    """Blocks of the thread-block cluster that renders one tile in the
+    forward kernel, each taking tile_h / C pixel rows: the largest C of 4,
+    2, 1 that divides tile_h and leaves a multiple of 32 pixels a block."""
+    return next(c for c in (4, 2, 1) if cfg.tile_h % c == 0 and (cfg.tile_pixels // c) % 32 == 0)
+
+
 def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
-    """Forward composite -> (T, OUT_ROWS, P). Kernel: csrc/composite_fwd.cu."""
+    """Forward composite -> (T, OUT_ROWS, P). Kernel: csrc/composite_fwd.cu,
+    launched as one cluster of `fwd_cluster_size(cfg)` blocks per tile."""
     if entries.device.type == "cpu":
         return composite_fwd_plain(entries, tile_start, tile_len, ntx, cfg)
     e, t = _check(entries, tile_start, tile_len, cfg)
     out = torch.empty((t, OUT_ROWS, cfg.tile_pixels), dtype=torch.float32, device=entries.device)
     fwd_kernel.launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out.data_ptr(), t,
-        *_tail(ntx, cfg, entries.device),
+        fwd_cluster_size(cfg), *_tail(ntx, cfg, entries.device),
     )
     return out
 

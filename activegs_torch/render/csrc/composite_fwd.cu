@@ -9,8 +9,8 @@
 // w = alpha * prod_{earlier}(1 - alpha) * T_chunk_start, and accumulate the
 // 7 feature channels (rgb, camera normal, confidence) and depth. The tile
 // stops as a whole once max_pixels(T) <= term_eps, checked only between
-// chunks (__syncthreads_or); row 9 records the chunks done, which the
-// backward and stats replays depend on.
+// chunks; row 9 records the chunks done, which the backward and stats
+// replays depend on.
 //
 // What bounds it on the H100: FP32 CUDA-core arithmetic. A pair costs 50
 // operations (a multiply-add counted as 2): 17 for alpha (the conic
@@ -20,53 +20,193 @@
 // 512 pixels from shared memory, 0.14 bytes per pair, so at 67 TFLOP/s
 // against 3.35 TB/s the arithmetic, not memory, is the limit.
 //
-// Design: one block per tile, one thread per pixel (512 threads for the
-// 16x32 tile). Each chunk's 18 used parameter rows are staged in shared
-// memory with coalesced loads; every thread then walks the chunk's entries
-// in order keeping its transmittance in a register, so the TPU's
-// prefix-product scan becomes a sequential per-pixel product. The per-pixel
-// accumulators stay in registers; the output rows are written once,
-// coalesced. No atomics: every output belongs to one tile.
+// The first design (one block of 512 threads per tile, every thread walking
+// every entry) lost time in two ways:
+// - Dead pairs paid full price. A trained surfel covers a few of a tile's
+//   16 pixel rows, so most (entry, 32-pixel row) pairs have alpha == 0 at
+//   every pixel (55% at a 512x512 keyframe view), yet each paid the depth
+//   with its division, the weight and the 8 accumulations: at the card's
+//   measured rates two thirds of a pair's cost.
+// - Too few blocks. A 128x128 candidate render is 32 tiles, so 32 blocks
+//   ran on 32 of the 132 SMs; at 512x512, 512 blocks of 512 threads ran in
+//   waves of a few blocks per SM, the heaviest tiles on alone at the end.
+//
+// Design:
+// - Exact cull. After alpha, a pixel with alpha == 0 skips the depth, the
+//   weight and the accumulations; a warp whose 32 pixels all have
+//   alpha == 0 skips them as a whole. This changes no bit of the output.
+//   Alpha is either >= alpha_cut or exactly +0 (eval_alpha), so the test
+//   alpha > 0 finds every skipped pair at +0. There w = +0 * excl * trans =
+//   +0 (both factors finite and >= 0); each feature product f * w is +-0,
+//   and so is w * t, because t is finite: the plane depth is clamped to
+//   [depth_lo, depth_hi] * dz, or is dz. A sum that starts at +0 never
+//   becomes -0 (x + -0 == x, and +0 + -0 == +0), so adding +-0 leaves
+//   every accumulator's bits as they were; and excl *= 1 - 0 is the
+//   identity. Every pixel's sequence of operations on its live pairs is the
+//   first design's, in the same order (`tests/test_torch_fwd_cull.py`
+//   shows the invariant on the CPU).
+// - Cluster split. A tile is rendered by a thread-block cluster of C blocks
+//   (C = 4 for the default 16x32 tile): block `rank` owns pixel rows
+//   [rank * tile_h / C, (rank + 1) * tile_h / C), one thread per pixel, so
+//   a 128x128 candidate is 128 blocks and a 512x512 view 2048 blocks of 128
+//   threads. Each block stages the chunk's 18 rows into its own shared
+//   memory (the view's entries stay resident in the 50 MB L2). Nothing is
+//   summed across blocks: every output pixel belongs to one thread.
+// - The stop stays tile-wide and exact. At each chunk boundary a block
+//   takes __syncthreads_or(trans > term_eps) over its rows and writes the
+//   bit into one of two flag slots of its shared memory (by chunk parity);
+//   a cluster barrier (release/acquire) publishes the C bits, and every
+//   warp reads them through distributed shared memory and ORs them, so all
+//   C blocks stop at the same chunk and write the same row 9. A slot is
+//   written again two chunks later, after the next cluster barrier, which
+//   no block passes before every sibling has read it; a final cluster
+//   barrier keeps each block alive until its siblings are done reading.
+// - Latency. With C = 4 a 128x128 candidate has one warp per SM
+//   sub-partition, so each warp's own chain of dependent instructions per
+//   entry sets the time. A chunk is staged entry by entry, 20 floats
+//   apart, each thread loading one entry's 18 rows at once; an entry's
+//   rows are read as 16-byte vectors (2 for alpha, 5 for a live pair); and
+//   the alphas of 8 entries are evaluated before any of them is
+//   composited, so their chains overlap. Compositing then walks the 8 in
+//   order, so each pixel's sequence of operations is unchanged.
+// One compiled kernel serves every C: the launch gives the cluster size as
+// a launch attribute (cudaLaunchKernelEx). Arithmetic is that of the first
+// design: -fmad=false, IEEE division, expf, and the op order of
+// eval_alpha / eval_depth and of the accumulations. No atomics: every
+// output belongs to one thread.
+//
+// Build at the default tile, K = 128, C = 4 (composite_fwd_occupancy on an
+// NVIDIA H100 80GB HBM3): 64 registers and 8 local bytes a thread (the
+// stack of the division's slow-path call; nothing spills), 10256 shared
+// bytes a block, 248 clusters at once, 7.52 blocks of 128 threads per SM.
+//
+// What bounds it now (chip_smoke.py on that card): at 128x128, the latency
+// of each warp's own chain of dependent instructions. There is one warp
+// per sub-partition, and the heaviest tile's 9216 entries take about 255
+// cycles each. At 512x512, with about 7.5 warps a sub-partition, the
+// kernel's device time is 1.7x the live-work bound at the card's measured
+// rates: alpha on every pair, the rest on pairs of live rows.
+#include <cooperative_groups.h>
+
 #include "composite_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace composite {
+
+constexpr int kStride = 20;  // floats a staged entry takes: rows 0..17 and 2 of padding
+constexpr int kVecs = kStride / 4;
+constexpr int kGroup = 8;    // entries whose alphas are evaluated together
+
+// Stage rows 0..17 of chunk `chunk` entry by entry, entry k's rows at
+// sh[k * kVecs .. + kVecs) (16-byte aligned; the rows of one thread's
+// entry are loaded at once, coalesced across the block's threads). The
+// caller synchronizes before and after.
+__device__ __forceinline__ void stage_chunk(float4* sh, const float* __restrict__ entries,
+                                            long long e_total, int start, int chunk, int kchunk) {
+  const float* src = entries + start + (long long)chunk * kchunk;
+  for (int k = threadIdx.x; k < kchunk; k += blockDim.x) {
+    float v[kStride];
+#pragma unroll
+    for (int r = 0; r < kUsedRows; ++r) v[r] = src[(long long)r * e_total + k];
+    v[kUsedRows] = v[kUsedRows + 1] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q)
+      sh[k * kVecs + q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+}
+
+// Entries [k0, k0 + G) of the staged chunk, for this thread's pixel: the G
+// alphas first (independent, so their latencies overlap), then in entry
+// order, where alpha > 0, the depth, the weight and the accumulations; excl
+// takes every entry. eval_alpha / eval_depth read the entry's rows from
+// registers (kchunk = 1, k = 0).
+template <int G>
+__device__ __forceinline__ void composite_entries(const float4* sh, int k0, const Tile& tl,
+                                                  const Cfg& cfg, float trans, float& excl,
+                                                  float* acc) {
+  float alpha[G];
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const float4 a = sh[(k0 + u) * kVecs], b = sh[(k0 + u) * kVecs + 1];
+    const float e[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const float dx = tl.px - e[kMeanX];
+    const float dy = tl.py - e[kMeanY];
+    float ex;
+    alpha[u] = eval_alpha(e, 1, 0, dx, dy, cfg, &ex);
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    if (alpha[u] > 0.0f) {
+      float e[kStride];
+#pragma unroll
+      for (int q = 0; q < kVecs; ++q) {
+        const float4 v = sh[(k0 + u) * kVecs + q];
+        e[4 * q] = v.x, e[4 * q + 1] = v.y, e[4 * q + 2] = v.z, e[4 * q + 3] = v.w;
+      }
+      const PlaneDepth d = eval_depth(e, 1, 0, tl.px, tl.py, cfg);
+      const float w = alpha[u] * excl * trans;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) acc[c] += e[kColR + c] * w;
+      acc[6] += e[kConf] * w;
+      acc[7] += w * d.t;
+    }
+    excl *= 1.0f - alpha[u];
+  }
+}
+
+// Tile `tile`'s segment and the center of its pixel `pix` (0 .. P-1,
+// row-major in the tile): `tile_of` for a thread whose pixel is not
+// threadIdx.x.
+__device__ __forceinline__ Tile split_tile_of(const int* __restrict__ tile_start,
+                                              const int* __restrict__ tile_len, int tile, int pix,
+                                              int ntx, int tile_w, int tile_h, int kchunk) {
+  Tile tl;
+  tl.start = tile_start[tile];
+  tl.nch = (tile_len[tile] + kchunk - 1) / kchunk;
+  tl.px = (float)((tile % ntx) * tile_w + pix % tile_w) + 0.5f;
+  tl.py = (float)((tile / ntx) * tile_h + pix / tile_w) + 0.5f;
+  return tl;
+}
 
 __global__ void __launch_bounds__(512)
 fwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
            float* __restrict__ out, int ntx, int tile_w, int tile_h, int kchunk, Cfg cfg) {
-  extern __shared__ float sh[];  // [kUsedRows][kchunk]
-  const Tile tl = tile_of(tile_start, tile_len, ntx, tile_w, tile_h, kchunk);
-  const int npix = blockDim.x;
-  const int p = threadIdx.x;
+  extern __shared__ float4 sh[];  // [kchunk][kVecs]
+  __shared__ int above[2];       // by chunk parity: some pixel of this block has T > term_eps
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = (int)cluster.num_blocks();
+  const int tile = blockIdx.x / nsplit;
+  const int npix = tile_w * tile_h;
+  const int p = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
+  const Tile tl = split_tile_of(tile_start, tile_len, tile, p, ntx, tile_w, tile_h, kchunk);
+  const int lane = threadIdx.x & 31;
 
   float trans = 1.0f;
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // r g b nx ny nz conf depth
   int i = 0;
-  // the barrier also orders the previous chunk's shared reads before the
-  // next chunk's loads
-  while (i < tl.nch && __syncthreads_or(trans > cfg.term_eps)) {
-    load_chunk(sh, entries, e_total, tl.start, i, kchunk);
+  for (; i < tl.nch; ++i) {
+    // the block's bit; the barrier also orders the previous chunk's shared
+    // reads before this chunk's loads
+    const int mine = __syncthreads_or(trans > cfg.term_eps);
+    if (threadIdx.x == 0) above[i & 1] = mine;
+    cluster.sync();
+    const bool go = __any_sync(0xffffffffu,
+                               lane < nsplit && *cluster.map_shared_rank(&above[i & 1], lane) != 0);
+    if (!go) break;
+    stage_chunk(sh, entries, e_total, tl.start, i, kchunk);
     __syncthreads();
     float excl = 1.0f;
-    for (int k = 0; k < kchunk; ++k) {
-      const float dx = tl.px - sh[kMeanX * kchunk + k];
-      const float dy = tl.py - sh[kMeanY * kchunk + k];
-      float ex;
-      const float alpha = eval_alpha(sh, kchunk, k, dx, dy, cfg, &ex);
-      const PlaneDepth d = eval_depth(sh, kchunk, k, tl.px, tl.py, cfg);
-      const float w = alpha * excl * trans;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) acc[c] += sh[(kColR + c) * kchunk + k] * w;
-      acc[6] += sh[kConf * kchunk + k] * w;
-      acc[7] += w * d.t;
-      excl *= 1.0f - alpha;
-    }
+    int k = 0;
+    for (; k + kGroup <= kchunk; k += kGroup) composite_entries<kGroup>(sh, k, tl, cfg, trans, excl, acc);
+    for (; k < kchunk; ++k) composite_entries<1>(sh, k, tl, cfg, trans, excl, acc);
     trans *= excl;
-    ++i;
   }
+  // no block leaves while a sibling may still read its flags
+  cluster.sync();
 
-  float* o = out + (long long)blockIdx.x * kOutRows * npix + p;
+  float* o = out + (long long)tile * kOutRows * npix + p;
 #pragma unroll
   for (int c = 0; c < 6; ++c) o[c * npix] = acc[c];
   o[6 * npix] = acc[7];
@@ -77,22 +217,78 @@ fwd_kernel(const float* __restrict__ entries, long long e_total,
   for (int r = 10; r < kOutRows; ++r) o[r * npix] = 0.0f;
 }
 
+// The launch of `num_tiles` tiles, a cluster of `cluster` blocks each.
+// `attr` holds the cluster dimension the config points at.
+inline cudaLaunchConfig_t launch_config(int num_tiles, int cluster, int npix, int smem,
+                                        cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(num_tiles * cluster);
+  lc.blockDim = dim3(npix / cluster);
+  lc.dynamicSmemBytes = smem;
+  lc.stream = stream;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  return lc;
+}
+
+// the staged chunk; raises the kernel's dynamic shared memory limit to it
+inline cudaError_t chunk_smem(int kchunk, int* smem) {
+  *smem = kStride * kchunk * (int)sizeof(float);
+  return cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
+inline bool splits(int cluster, int tile_w, int tile_h) {
+  return cluster >= 1 && tile_h % cluster == 0 && (tile_w * tile_h / cluster) % 32 == 0;
+}
+
 }  // namespace composite
 
+// `cluster` blocks render each tile, each `tile_h / cluster` pixel rows.
 extern "C" int composite_fwd_launch(const float* entries, long long e_total,
                                     const int* tile_start, const int* tile_len, float* out,
-                                    int num_tiles, int ntx, int tile_w, int tile_h, int kchunk,
-                                    float alpha_cut, float alpha_max, float term_eps,
+                                    int num_tiles, int cluster, int ntx, int tile_w, int tile_h,
+                                    int kchunk, float alpha_cut, float alpha_max, float term_eps,
                                     float depth_lo, float depth_hi, void* stream) {
+  if (!composite::splits(cluster, tile_w, tile_h)) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
   const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
-  const int smem = composite::kUsedRows * kchunk * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      composite::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem;
+  cudaError_t err = composite::chunk_smem(kchunk, &smem);
   if (err != cudaSuccess) return (int)err;
-  composite::fwd_kernel<<<num_tiles, tile_w * tile_h, smem, (cudaStream_t)stream>>>(
-      entries, e_total, tile_start, tile_len, out, ntx, tile_w, tile_h, kchunk, cfg);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t lc = composite::launch_config(num_tiles, cluster, tile_w * tile_h, smem,
+                                                         (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&lc, composite::fwd_kernel, entries, e_total, tile_start, tile_len, out,
+                           ntx, tile_w, tile_h, kchunk, cfg);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// What the build gives the kernel at this tile size, K and cluster size:
+// registers and local (spill) bytes a thread, shared bytes a block (the
+// staged chunk and the stop flags), and the clusters of that size the GPU
+// holds at once (the CUDA occupancy query).
+extern "C" int composite_fwd_occupancy(int tile_w, int tile_h, int kchunk, int cluster,
+                                       int* registers, int* local_bytes, int* smem_bytes,
+                                       int* active_clusters) {
+  if (!composite::splits(cluster, tile_w, tile_h)) return (int)cudaErrorInvalidValue;
+  int smem;
+  cudaError_t err = composite::chunk_smem(kchunk, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, composite::fwd_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  *smem_bytes = smem + (int)fa.sharedSizeBytes;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t lc =
+      composite::launch_config(1, cluster, tile_w * tile_h, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(active_clusters, composite::fwd_kernel, &lc);
 }
 
 COMPOSITE_EXPORT_ERRSTR(composite_fwd)

@@ -30,12 +30,19 @@ just before it and read just after:
    rises, that the robot moves, that planning launches the forward kernel
    once per candidate, and holds one plan step's candidate utilities
    through the kernel against those through the plain forward version.
+   Then it builds the entry streams of that plan step's candidates, holds
+   the forward kernel against its plain version on the candidate with the
+   most reached (entry, pixel) pairs, times it there, and takes the device
+   time of one forward launch per candidate: one plan step's forward work.
 
-Path 1 also prints the share of (entry, 32-pixel row) pairs that the
-backward kernel's warp cull keeps, from a plain PyTorch pass on the same
-inputs. With `--bwd-parent DIR` (a `git archive` of the parent commit in a
-git-ignored directory) it then imports DIR's compositor beside this one,
-calls each backward wrapper on the keyframe-5 view, checks their gradients
+Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
+the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
+(a plain PyTorch pass on the same inputs) and the real entries each tile's
+composite reaches. With `--parent DIR` (a `git archive` of the parent
+commit in a git-ignored directory) it then imports DIR's compositor beside
+this one, finds which of the three compositor kernels' sources differ
+(by the digest their libraries are named by), and for each that does:
+calls both wrappers on that kernel's views and checks their outputs
 bitwise equal, prints what each build gives and each call's device time
 by kernel, and times the two in turns (parent, change, change, parent, 4
 times) in this process.
@@ -73,6 +80,7 @@ YAW_DEG = (-40.0, -20.0, 0.0, 20.0, 40.0)  # turning around POS, +x wall first
 SEED = 0
 TIMED_LAUNCHES = 25
 PLAIN_RUNS = 5
+KF_VIEW = f"{RES}x{RES} keyframe-{KEYFRAMES} view"
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -84,6 +92,10 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_PAIR = {"composite_fwd": 50, "composite_bwd": 105, "composite_stats": 25}
 # of those, expf and IEEE divisions per pair (each also counted as 1 above)
 EXP_DIV_PER_PAIR = {"composite_fwd": (1, 1), "composite_bwd": (1, 1), "composite_stats": (1, 0)}
+# of the forward's, alpha's (the conic, clamps, expf, the cut): the rest
+# (depth with its division, weight, accumulations) is live work only on
+# pairs of 32-pixel rows with some alpha > 0
+FWD_ALPHA_OPS = 17
 REPLACES = {
     "composite_fwd": "activegs_tpu/render/composite_pallas.py:179",
     "composite_bwd": "activegs_tpu/render/composite_pallas.py:297",
@@ -195,12 +207,29 @@ def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
 
 
+def cull_line(kernels: str, view: str, fwd_args, stop: torch.Tensor) -> tuple[int, int]:
+    """Prints what the warp cull of `kernels` keeps on a view (the forward
+    wrapper's arguments `fwd_args` and the chunks reached, `stop`), and the
+    real entries reached per tile. Returns (live, all) (entry, 32-pixel
+    row) pairs."""
+    from activegs_torch.render import composite as cp
+
+    ent, tile_start, tile_len, ntx, rcfg = fwd_args
+    live, rows = cp.live_warp_rows(ent, tile_start, tile_len, stop, ntx, rcfg)
+    reached = torch.minimum(tile_len.long(), stop.long() * rcfg.chunk)
+    print(f"cull ({kernels}), {view}: {live} of {rows} (entry, 32-pixel row) pairs of the real entries in the "
+          f"reached chunks have some alpha > 0 (share {live / rows:.4f}; plain PyTorch on the same inputs); real "
+          f"entries reached per tile: mean {float(reached.float().mean()):.1f}, max {int(reached.max())} "
+          f"({len(tile_len)} tiles)")
+    return live, rows
+
+
 def compare(state, buf, cfg, rcfg):
     """Path 1, checks: kernels against plain versions at the main path's shapes.
     Returns ({kernel: max abs error}, {kernel: (kernel call, plain call,
-    (entry, pixel) pairs reached, bytes moved)}, the share of (entry,
-    32-pixel row) pairs that the backward kernel's cull keeps, the backward
-    wrapper's arguments)."""
+    (entry, pixel) pairs reached, bytes moved)}, the (live, all) (entry,
+    32-pixel row) pairs of the kernels' culls, {kernel: {view: the
+    wrapper's arguments}})."""
     from activegs_torch.mapping import gaussians as gm
     from activegs_torch.mapping import keyframes as kf
     from activegs_torch.mapping import trainer
@@ -263,11 +292,8 @@ def compare(state, buf, cfg, rcfg):
     res["composite_bwd"] = float((d_k - d_p).abs().max())
     print(f"bwd: per-entry grads max abs err {res['composite_bwd']:.3g} (scaled {scaled_err(d_k, d_p):.3g})")
     check(scaled_err(d_k, d_p) <= 3e-4, "bwd kernel per-entry grads disagree with its plain version")
-    live, rows = cp.live_warp_rows(ent, b.tile_start, b.tile_len, o_k[:, O_STOP, 0], ntx, rcfg)
-    reached = torch.minimum(b.tile_len.long(), o_k[:, O_STOP, 0].long() * rcfg.chunk)
-    print(f"bwd cull: {live} of {rows} (entry, 32-pixel row) pairs of the real entries in the reached chunks "
-          f"have some alpha > 0 (share {live / rows:.4f}; plain PyTorch on the same inputs); real entries "
-          f"reached per tile: mean {float(reached.float().mean()):.1f}, max {int(reached.max())}")
+    fwd_args = (ent, b.tile_start, b.tile_len, ntx, rcfg)
+    cull = cull_line("fwd and bwd kernels", KF_VIEW, fwd_args, o_k[:, O_STOP, 0])
 
     # stats, on post_process's front-only stream with its depth mask
     p2s, _, dzs, ivs = pp.preprocess(attrs, cam, shape, rcfg, front_only=True)
@@ -340,7 +366,12 @@ def compare(state, buf, cfg, rcfg):
             18 * ent_s.shape[1] * 4 + mask.numel() * 4 + 2 * ent_s.shape[1] * 4,
         ),
     }
-    return res, inputs, live / rows, (ent, b.tile_start, b.tile_len, o_k, gout, ntx, rcfg)
+    views = {
+        "composite_fwd": {KF_VIEW: fwd_args},
+        "composite_bwd": {KF_VIEW: (ent, b.tile_start, b.tile_len, o_k, gout, ntx, rcfg)},
+        "composite_stats": {f"{KF_VIEW}, front only": (ent_s, bs.tile_start, bs.tile_len, mask, thr, ntx, rcfg)},
+    }
+    return res, inputs, cull, views
 
 
 def time_ms(fn, n: int) -> float:
@@ -447,16 +478,29 @@ def probe_phase(dev):
     return records, {op: r["tops"] for op, r in vres.items()}
 
 
-def measured_rate_bound_ms(name: str, pairs: int, tops: dict) -> float:
-    """Least time for a compositor kernel's pairs at the probe's measured
-    rates: its expf at the exp round's rate (exp, negate, add: 3 ops), its
-    divisions at the div round's rate (2 ops), and the rest of its
-    operations at the rate of a multiply then an add as the kernels compile
-    them (-fmad=false)."""
-    n_exp, n_div = EXP_DIV_PER_PAIR[name]
-    rest = OPS_PER_PAIR[name] - 3 * n_exp - 2 * n_div
+def rate_ms(pairs: int, ops: int, n_exp: int, n_div: int, tops: dict) -> float:
+    """Least time for `ops` operations on each of `pairs` pairs at the
+    probe's measured rates: `n_exp` expf at the exp round's rate (exp,
+    negate, add: 3 ops), `n_div` divisions at the div round's rate (2 ops),
+    and the rest at the rate of a multiply then an add as the kernels
+    compile them (-fmad=false)."""
+    rest = ops - 3 * n_exp - 2 * n_div
     per_pair = rest / tops["fma"] + 3 * n_exp / tops["exp"] + 2 * n_div / tops["div"]  # ps at Tops/s
     return pairs * per_pair * 1e-12 * 1e3
+
+
+def measured_rate_bound_ms(name: str, pairs: int, tops: dict) -> float:
+    """Least time for a compositor kernel's pairs at the probe's measured rates."""
+    return rate_ms(pairs, OPS_PER_PAIR[name], *EXP_DIV_PER_PAIR[name], tops)
+
+
+def live_work_bound_ms(pairs: int, live_pairs: int, tops: dict) -> float:
+    """The forward kernel's live-work bound at the probe's measured rates:
+    alpha on every real pair, the other operations (depth with its
+    division, weight, accumulations) only on the `live_pairs` (entry,
+    pixel) pairs of 32-pixel rows with some alpha > 0."""
+    return rate_ms(pairs, FWD_ALPHA_OPS, 1, 0, tops) + rate_ms(
+        live_pairs, OPS_PER_PAIR["composite_fwd"] - FWD_ALPHA_OPS, 0, 1, tops)
 
 
 def ptxas_usage(log: str) -> dict[str, tuple[int, int]]:
@@ -485,30 +529,41 @@ def import_composite(root: Path, package: str):
     return importlib.import_module(f"{package}.render.composite")
 
 
-def bwd_build(comp, rcfg) -> str:
-    """What the build of the backward kernel that `comp` (a composite
-    module) launches gives at these shapes: registers and local bytes a
-    thread, shared bytes a block and blocks per SM from the library's own
-    occupancy query where it exports one, else registers and spills from
-    its ptxas log."""
-    lib = ctypes.CDLL(str(comp.bwd_kernel.library))
-    if not hasattr(lib, "composite_bwd_occupancy"):
-        usage = ptxas_usage(comp.bwd_kernel.library.with_suffix(".log").read_text())
+def kernel_build(comp, name: str, rcfg) -> str:
+    """What the build of compositor kernel `name` that `comp` (a composite
+    module) launches gives at these shapes: from the library's own
+    occupancy query where it exports one (the forward kernel: registers and
+    local bytes a thread, shared bytes a block, clusters the GPU holds at
+    once at the launched cluster size; the backward: the same with blocks
+    per SM), else registers and spills from its ptxas log."""
+    kern = {k.source: k for k in comp.KERNELS}[name]
+    lib = ctypes.CDLL(str(kern.library))
+    if not hasattr(lib, f"{name}_occupancy"):
+        usage = ptxas_usage(kern.library.with_suffix(".log").read_text())
         return "; ".join(f"{f}: {r} registers, {sp} bytes spilled (ptxas)" for f, (r, sp) in usage.items()) + \
-            "; blocks per SM not measured (the build exports no occupancy query)"
-    fn = lib.composite_bwd_occupancy
+            "; occupancy not measured (the build exports no occupancy query)"
+    fn = getattr(lib, f"{name}_occupancy")
     fn.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(4)]
-    code = fn(rcfg.tile_pixels, rcfg.chunk, *(ctypes.byref(v) for v in vals))
-    check(code == 0, f"composite_bwd_occupancy: CUDA error {code}")
-    regs, local, smem, blocks = (v.value for v in vals)
-    return (f"{regs} registers and {local} local bytes a thread, {smem} bytes of shared memory a block, "
-            f"{blocks} blocks of {rcfg.tile_pixels} threads per SM (the library's CUDA occupancy query)")
+    if name == "composite_fwd":
+        c = comp.fwd_cluster_size(rcfg)
+        code = fn(rcfg.tile_w, rcfg.tile_h, rcfg.chunk, c, *(ctypes.byref(v) for v in vals))
+    else:
+        code = fn(rcfg.tile_pixels, rcfg.chunk, *(ctypes.byref(v) for v in vals))
+    check(code == 0, f"{name}_occupancy: CUDA error {code}")
+    regs, local, smem, n = (v.value for v in vals)
+    head = f"{regs} registers and {local} local bytes a thread, {smem} bytes of shared memory a block, "
+    if name == "composite_fwd":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return head + (f"{n} clusters of {c} blocks of {rcfg.tile_pixels // c} threads at once on the GPU, "
+                       f"{n * c / sms:.2f} blocks per SM on {sms} SMs (the library's CUDA occupancy query)")
+    return head + f"{n} blocks of {rcfg.tile_pixels} threads per SM (the library's CUDA occupancy query)"
 
 
-def device_ms_by_kernel(fn, n: int) -> str:
-    """Device time per call of each CUDA kernel (and memset) that `fn`
-    launches: the mean over `n` calls, from a torch.profiler trace."""
+def device_times(fn, n: int) -> list[tuple[str, float]]:
+    """Device time per call (ms) of each CUDA kernel (and memset) that `fn`
+    launches, most first: the mean over `n` calls after a warm-up call,
+    from a torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -518,43 +573,72 @@ def device_ms_by_kernel(fn, n: int) -> str:
             fn()
         torch.cuda.synchronize()
     times = [(e.key, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()]
-    times = [(k, t / n / 1e3) for k, t in times if t > 0]
+    return sorted(((k, t / n / 1e3) for k, t in times if t > 0), key=lambda kt: -kt[1])
+
+
+def device_ms_by_kernel(fn, n: int) -> str:
+    times = device_times(fn, n)
     if not times:
         return "not measured (the trace holds no device time)"
-    return ", ".join(f"{k} {t:.4f} ms" for k, t in sorted(times, key=lambda kt: -kt[1]))
+    return ", ".join(f"{k} {t:.4f} ms" for k, t in times)
 
 
-def bwd_in_turns(bwd_args, parent: str, rcfg, rounds: int = 4) -> None:
-    """The backward kernel of the checkout `parent` (a `git archive` of the
-    parent commit) against this checkout's, each through its own wrapper on
-    the same inputs (`bwd_args`, the keyframe-5 view): checks the two
-    outputs bitwise equal, prints what each build gives and each call's
-    device time by kernel, then times them in turns, parent, change,
-    change, parent, `rounds` times, each a median of TIMED_LAUNCHES calls."""
+def fwd_device_ms(fn, n: int) -> float:
+    """Device time per call of the forward compositor kernel in `fn`."""
+    t = sum(ms for k, ms in device_times(fn, n) if "fwd_kernel" in k)
+    check(t > 0, "the profiler trace holds no device time of the forward kernel")
+    return t
+
+
+def same_bits(a, b) -> bool:
+    """Whether two outputs (a tensor or a tuple of them) are bitwise equal."""
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in pairs)
+
+
+def parent_in_turns(views, parent: str, rounds: int = 4) -> None:
+    """The compositor kernels of the checkout `parent` (a `git archive` of
+    the parent commit) against this checkout's: finds which kernels'
+    sources differ (fails unless one does), and for each that does, calls
+    each side's own wrapper on that kernel's views (`views`, {kernel:
+    {view: the wrapper's arguments}}), checks the two outputs bitwise
+    equal, prints what each build gives and each call's device time by
+    kernel, then times them in turns, parent, change, change, parent,
+    `rounds` times, each a median of TIMED_LAUNCHES calls."""
+    from activegs_torch.render import _build
     from activegs_torch.render import composite as cp
 
-    check((Path(parent) / "activegs_torch" / "render" / "csrc" / "composite_bwd.cu").exists(),
-          f"no backward kernel source under {parent}")
-    comp = {"parent": import_composite(Path(parent), "_bwd_parent_activegs_torch"), "change": cp}
-    # the library's name carries the digest of its sources
-    check(comp["parent"].bwd_kernel.library.name != cp.bwd_kernel.library.name,
-          "the parent's backward kernel source is this one")
-    calls = {side: (lambda m=m: m.composite_bwd(*bwd_args)) for side, m in comp.items()}
-    outs = {side: call() for side, call in calls.items()}
-    same = torch.equal(outs["parent"], outs["change"])
-    print(f"bwd A/B: the two kernels' per-entry gradients bitwise equal: {same}")
-    check(same, "the backward kernel's gradients differ from the parent kernel's")
-    for side in comp:
-        print(f"bwd A/B {side} build: {bwd_build(comp[side], rcfg)}")
-        print(f"bwd A/B {side} device time a call: {device_ms_by_kernel(calls[side], TIMED_LAUNCHES)}")
-    times = {"parent": [], "change": []}
-    for _ in range(rounds):
-        for side in ("parent", "change", "change", "parent"):
-            times[side].append(time_ms(calls[side], TIMED_LAUNCHES))
-    for side, ts in times.items():
-        print(f"bwd A/B {side}: median {statistics.median(ts):.4f} ms over {len(ts)} turns (each a median of "
-              f"{TIMED_LAUNCHES} calls), range {min(ts):.4f}-{max(ts):.4f} ms, in order "
-              + " ".join(f"{t:.4f}" for t in ts))
+    csrc = Path(parent) / "activegs_torch" / "render" / "csrc"
+    check(csrc.is_dir(), f"no compositor kernel sources under {parent}")
+    # a library is named by the digest of its sources, taken the same way on both sides
+    changed = [n for n in views if _build.source_digest(n, csrc) != _build.source_digest(n)]
+    print(f"parent A/B: kernels whose sources differ from the parent's: {', '.join(changed) or 'none'}")
+    check(bool(changed), "no compositor kernel source differs from the parent's")
+    comp = {"parent": import_composite(Path(parent), "_parent_activegs_torch"), "change": cp}
+    for name in changed:
+        short = name.removeprefix("composite_")
+        calls = {}
+        for view, args in views[name].items():
+            calls[view] = {side: (lambda m=m, a=args: getattr(m, name)(*a)) for side, m in comp.items()}
+            outs = {side: call() for side, call in calls[view].items()}
+            same = same_bits(outs["parent"], outs["change"])
+            print(f"{short} A/B, {view}: the two kernels' outputs bitwise equal: {same}")
+            check(same, f"the {short} kernel's output differs from the parent kernel's on the {view}")
+        rcfg = next(iter(views[name].values()))[-1]
+        for side in comp:
+            print(f"{short} A/B {side} build: {kernel_build(comp[side], name, rcfg)}")
+        for view, call in calls.items():
+            for side in comp:
+                print(f"{short} A/B {side}, {view}, device time a call: "
+                      f"{device_ms_by_kernel(call[side], TIMED_LAUNCHES)}")
+            times = {"parent": [], "change": []}
+            for _ in range(rounds):
+                for side in ("parent", "change", "change", "parent"):
+                    times[side].append(time_ms(call[side], TIMED_LAUNCHES))
+            for side, ts in times.items():
+                print(f"{short} A/B {side}, {view}: median {statistics.median(ts):.4f} ms over {len(ts)} turns "
+                      f"(each a median of {TIMED_LAUNCHES} calls), range {min(ts):.4f}-{max(ts):.4f} ms, in order "
+                      + " ".join(f"{t:.4f}" for t in ts))
 
 
 def mission_phase(dev):
@@ -619,26 +703,18 @@ def utility_check(mapper) -> None:
     its final map), through the kernel and through the plain forward
     version: explore within 1 voxel over num_voxels, exploit at relative
     error (max over candidates, to the largest) at most 1e-4."""
-    from activegs_torch.mapping import gaussians as gm
-    from activegs_torch.mapping.trainer import pick_entry_bucket, pick_subset_bucket
     from activegs_torch.planning import confidence as cf
     from activegs_torch.render import composite as cp
 
     planner, sim, grid = mapper.planner, mapper.simulator, mapper.grid
-    dev = mapper.device
-    state = gm.slice_state(mapper.gm_state, gm.bucket_capacity(mapper.gm_state.count, mapper.map_cfg.capacity))
-    h, w = (int(round(planner.cfg.render_ratio * r)) for r in sim.resolution)
-    cands = torch.as_tensor(planner.last_candidates, device=dev)
+    state, cands, (h, w), rcfg, budget, bucket = plan_step_views(mapper)
     masks, _ = planner._candidate_valid_masks(planner.last_candidates, sim, (h, w))
-    ents, ivs = cf._candidate_entry_stats(state, cands, sim.intrinsic, (h, w), planner.map_cfg,
-                                          planner.utility_raster_cfg)
 
     def utilities():
         return cf._confidence_utility_batch(
             state, mapper.vm_state.unexplored, cands, sim.intrinsic, masks,
-            torch.tensor(sim.depth_range, dtype=torch.float32, device=dev), grid, (h, w), planner.map_cfg,
-            planner.utility_raster_cfg, entry_budget=pick_entry_bucket(ents),
-            subset_bucket=pick_subset_bucket(ivs, state.capacity),
+            torch.tensor(sim.depth_range, dtype=torch.float32, device=mapper.device), grid, (h, w),
+            planner.map_cfg, rcfg, entry_budget=budget, subset_bucket=bucket,
         )
 
     n0 = cp.fwd_kernel.launches
@@ -653,10 +729,130 @@ def utility_check(mapper) -> None:
     check(e_err <= 1.0 and x_err <= 1e-4, "candidate utilities through the kernel disagree with the plain path")
 
 
+def plan_step_views(mapper):
+    """The mission's last plan step as the utility renders see it: (the
+    map sliced to its bucket, the candidate poses, the render shape, the
+    utility raster config, the entry budget, the subset bucket)."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping.trainer import pick_entry_bucket, pick_subset_bucket
+    from activegs_torch.planning import confidence as cf
+
+    planner, sim = mapper.planner, mapper.simulator
+    state = gm.slice_state(mapper.gm_state, gm.bucket_capacity(mapper.gm_state.count, mapper.map_cfg.capacity))
+    shape = tuple(int(round(planner.cfg.render_ratio * r)) for r in sim.resolution)
+    cands = torch.as_tensor(planner.last_candidates, device=mapper.device)
+    rcfg = planner.utility_raster_cfg
+    ents, ivs = cf._candidate_entry_stats(state, cands, sim.intrinsic, shape, planner.map_cfg, rcfg)
+    return state, cands, shape, rcfg, pick_entry_bucket(ents), pick_subset_bucket(ivs, state.capacity)
+
+
+@torch.no_grad()
+def candidate_streams(mapper):
+    """The forward wrapper's arguments of each candidate render of the
+    mission's last plan step, built as `confidence.candidate_view_stats`
+    builds them (the map compacted to the candidate's in-view gaussians,
+    then binned at the utility renders' budget). Returns (shape, streams)."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.render import binning, renderer
+    from activegs_torch.render import preprocess as pp
+    from activegs_torch.render.types import Camera
+
+    state, cands, shape, rcfg, budget, bucket = plan_step_views(mapper)
+    attrs = gm.attrs_of(state, mapper.planner.map_cfg)
+    packed = renderer.pack_attrs(attrs)
+    _, _, ntx, _ = binning.bin_tile_dims(shape, rcfg)
+    streams = []
+    for ext in cands:
+        cam = Camera(ext, mapper.simulator.intrinsic)
+        view = attrs
+        if bucket is not None:
+            _, _, _, iv = pp.preprocess(attrs, cam, shape, rcfg)
+            sel, selv, inv, _ = renderer.compact_in_view(iv, bucket)
+            view = renderer.subset_view(packed, (sel, selv, inv))
+        p2d, _, dz, iv = pp.preprocess(view, cam, shape, rcfg)
+        b = binning.bin_entries(p2d, dz, iv, shape, rcfg, budget)
+        streams.append((renderer.gather_entries(p2d, b.gid), b.tile_start, b.tile_len, ntx, rcfg))
+    return shape, streams
+
+
+def fwd_bounds(args, out, tops: dict, live_rows: int) -> dict:
+    """Bounds of one forward launch on `args` with output `out`: the data
+    sheet's (and what sets it), at the probe's measured rates, and the
+    live-work bound at those rates (`live_rows` live (entry, 32-pixel row)
+    pairs)."""
+    from activegs_torch.render.types import O_STOP
+
+    ent, _, tile_len, _, rcfg = args
+    pairs = real_pairs(tile_len, out[:, O_STOP, 0], rcfg.chunk, rcfg.tile_pixels)
+    t_ops = pairs * OPS_PER_PAIR["composite_fwd"] / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (18 * ent.shape[1] * 4 + out.numel() * 4) / PEAK_BYTES_PER_S * 1e3
+    return {"pairs": pairs, "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "measured_rate_bound_ms": measured_rate_bound_ms("composite_fwd", pairs, tops),
+            "live_work_bound_ms": live_work_bound_ms(pairs, 32 * live_rows, tops)}
+
+
+def candidate_phase(mapper, tops: dict):
+    """Path 3, the forward kernel on the mission's last plan step's
+    candidate renders: holds it against its plain version on the candidate
+    with the most reached (entry, pixel) pairs, prints the cull there and
+    over the plan step, and times it there (CUDA events and device time,
+    median / mean of TIMED_LAUNCHES) and over one launch per candidate
+    (device time, after a warm-up). Returns (the record's candidate keys,
+    {view: the heaviest candidate's arguments})."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS
+
+    shape, streams = candidate_streams(mapper)
+    view = f"heaviest {shape[0]}x{shape[1]} candidate"
+    outs = [cp.composite_fwd(*a) for a in streams]
+    culls = [cp.live_warp_rows(*a[:3], o[:, O_STOP, 0], *a[3:]) for a, o in zip(streams, outs)]
+    bounds = [fwd_bounds(a, o, tops, live) for a, o, (live, _) in zip(streams, outs, culls)]
+    h = max(range(len(streams)), key=lambda i: bounds[i]["pairs"])
+    heavy, o_k = streams[h], outs[h]
+    o_p = cp.composite_fwd_plain(*heavy)
+    img_rows = [r for r in range(O_TRANS + 1) if r != O_DEPTH]
+    e_img = float((o_k[:, img_rows] - o_p[:, img_rows]).abs().max())
+    e_dep = float((o_k[:, O_DEPTH] - o_p[:, O_DEPTH]).abs().max())
+    print(f"candidate fwd: {len(streams)} candidates at {shape[0]}x{shape[1]}, the heaviest #{h}: E "
+          f"{heavy[0].shape[1]} tiles {len(heavy[1])} pairs {bounds[h]['pairs']}; image err {e_img:.3g} "
+          f"depth err {e_dep:.3g}")
+    check(e_img <= 2e-5 and e_dep <= 1e-4, "fwd kernel disagrees with its plain version on the candidate")
+    check(torch.equal(o_k[:, O_STOP], o_p[:, O_STOP]), "fwd kernel stops at other chunks than its plain version "
+          "on the candidate")
+    live, rows = cull_line("fwd kernel", view, heavy, o_k[:, O_STOP, 0])
+    step_live, step_rows = (sum(c[i] for c in culls) for i in (0, 1))
+    print(f"cull (fwd kernel), one plan step ({len(streams)} candidates): {step_live} of {step_rows} (entry, "
+          f"32-pixel row) pairs have some alpha > 0 (share {step_live / step_rows:.4f})")
+
+    rec = {
+        "candidate_view": view,
+        "candidate_ms": time_ms(lambda: cp.composite_fwd(*heavy), TIMED_LAUNCHES),
+        "candidate_device_ms": fwd_device_ms(lambda: cp.composite_fwd(*heavy), TIMED_LAUNCHES),
+        "candidate_plain_ms": time_ms(lambda: cp.composite_fwd_plain(*heavy), PLAIN_RUNS),
+        **{f"candidate_{k}": v for k, v in bounds[h].items()},
+        "candidate_live_row_share": live / rows,
+        "plan_step_fwd_ms": fwd_device_ms(lambda: [cp.composite_fwd(*a) for a in streams], 1),
+        "plan_step_fwd_plain_ms": time_ms(lambda: [cp.composite_fwd_plain(*a) for a in streams], 1),
+        **{f"plan_step_fwd_{k}": sum(b[k] for b in bounds)
+           for k in ("bound_ms", "measured_rate_bound_ms", "live_work_bound_ms")},
+        "plan_step_live_row_share": step_live / step_rows,
+    }
+    print(f"composite_fwd, {view}: {rec['candidate_ms']:.4f} ms (CUDA events; device time "
+          f"{rec['candidate_device_ms']:.4f} ms; plain {rec['candidate_plain_ms']:.3f} ms), bound "
+          f"{rec['candidate_bound_ms']:.4f} ms data sheet, {rec['candidate_measured_rate_bound_ms']:.4f} ms at the "
+          f"probe's measured rates, live-work bound {rec['candidate_live_work_bound_ms']:.4f} ms at those rates")
+    print(f"composite_fwd, one plan step ({len(streams)} launches, one a candidate): device time "
+          f"{rec['plan_step_fwd_ms']:.4f} ms (plain {rec['plan_step_fwd_plain_ms']:.2f} ms), bound "
+          f"{rec['plan_step_fwd_bound_ms']:.4f} ms data sheet, {rec['plan_step_fwd_measured_rate_bound_ms']:.4f} ms "
+          f"at the measured rates, live-work bound {rec['plan_step_fwd_live_work_bound_ms']:.4f} ms")
+    return rec, {view: heavy}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--bwd-parent", metavar="DIR",
-                        help="also time the backward kernel of the checkout DIR against this one's, in turns")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="also hold each compositor kernel whose source differs in the checkout DIR against "
+                             "this one's, bitwise, and time the two in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -679,11 +875,15 @@ def main() -> None:
 
     dev = torch.device("cuda")
     state, buf, map_launches, cfg, rcfg = main_path(dev)
-    errs, inputs, live_share, bwd_args = compare(state, buf, cfg, rcfg)
+    fwd_build = kernel_build(cp, "composite_fwd", rcfg)
+    print(f"composite_fwd build: {fwd_build}")
+    errs, inputs, (live, rows), views = compare(state, buf, cfg, rcfg)
     del state, buf
     probes, tops = probe_phase(dev)
     mission_launches, mapper = mission_phase(dev)
     utility_check(mapper)
+    candidate, cand_view = candidate_phase(mapper, tops)
+    views["composite_fwd"].update(cand_view)
 
     kernels = []
     for name, (kfn, pfn, pairs, nbytes) in inputs.items():
@@ -693,6 +893,10 @@ def main() -> None:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
         measured = measured_rate_bound_ms(name, pairs, tops)
+        extra = {"live_row_share": live / rows} if name in ("composite_fwd", "composite_bwd") else {}
+        if name == "composite_fwd":
+            extra.update(live_work_bound_ms=live_work_bound_ms(pairs, 32 * live, tops),
+                         cluster_blocks=cp.fwd_cluster_size(rcfg), build=fwd_build, **candidate)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -706,17 +910,19 @@ def main() -> None:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "measured_rate_bound_ms": measured,
-            **({"live_row_share": live_share} if name == "composite_bwd" else {}),
+            **extra,
             "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name]},
         })
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms data sheet, "
               f"{measured:.4f} ms at the probe's measured rates ({pairs} pairs), "
               f"{map_launches[name] / KEYFRAMES:.1f} launches per fixed-pose keyframe, "
-              f"{mission_launches[name]} in the {MISSION_STEPS}-step mission")
+              f"{mission_launches[name]} in the {MISSION_STEPS}-step mission"
+              + (f"; live-work bound {extra['live_work_bound_ms']:.4f} ms at the measured rates"
+                 if "live_work_bound_ms" in extra else ""))
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
-    if args.bwd_parent:
-        bwd_in_turns(bwd_args, args.bwd_parent, rcfg)
+    if args.parent:
+        parent_in_turns(views, args.parent)
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -41,3 +41,23 @@ def test_build_all_builds_same_named_sources_of_two_directories(tmp_path, monkey
     assert not list((tmp_path / "kernels").glob("*.tmp"))
     # built libraries are reused
     assert _build.build_all([(d, "k") for d in dirs]) == {}
+
+
+def test_source_digest_covers_a_kernel_and_the_headers_it_includes(tmp_path):
+    """A library is named by its own source and the headers it includes:
+    editing one kernel's source leaves another's library name alone, and
+    editing a shared header renames both."""
+    (tmp_path / "common.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "b.cu").write_text('  #  include "common.cuh"\n')
+    (tmp_path / "c.cu").write_text("// no headers\n")
+    assert [p.name for p in _build.sources("a", tmp_path)] == ["a.cu", "common.cuh", "inner.cuh"]
+    before = {n: _build.source_digest(n, tmp_path) for n in "abc"}
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n// edited\n')
+    after = {n: _build.source_digest(n, tmp_path) for n in "abc"}
+    assert after["a"] != before["a"] and after["b"] == before["b"] and after["c"] == before["c"]
+    (tmp_path / "inner.cuh").write_text("// inner, edited\n")
+    last = {n: _build.source_digest(n, tmp_path) for n in "abc"}
+    assert last["a"] != after["a"] and last["b"] != after["b"] and last["c"] == after["c"]
+    assert _build.lib_path("b", tmp_path).name == f"b-{last['b']}.so"

@@ -82,12 +82,40 @@ def small_surfel_scene(dev, n=900, seed=5):
     )
 
 
-def scene_entries(attrs, cfg, dev):
+def wall_edge_scene(dev, n=5000, seed=7):
+    """Seeded scene that corners the forward kernel's cluster stop: an
+    opaque wall of opacity-1 surfels at depth 1 over the upper part of the
+    view, whose lower edge crosses a row of tiles mid-tile at 64x64 and at
+    128x128 (the tile's upper pixel rows go opaque, its lower rows do not),
+    and behind it and below it many small surfels at depths 1.2-3. Tiles
+    under the wall stop after their first K = 128 chunk, the others run
+    late."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(-0.9, 0.91, 0.06), np.arange(-0.9, 0.11, 0.06))
+    nw = gx.size
+    wall = np.stack([gx.ravel(), gy.ravel(), np.ones(nw)], 1)
+    small = np.stack([rng.uniform(-1.0, 1.0, n), rng.uniform(-1.0, 1.0, n), rng.uniform(1.2, 3.0, n)], 1)
+    means = np.concatenate([wall, small])
+    normals = np.tile([0.0, 0.0, -1.0], (nw + n, 1))
+    normals[nw:] += rng.normal(scale=0.2, size=(n, 3))
+    scales = np.concatenate([np.full((nw, 2), 0.06), rng.uniform(0.01, 0.03, (n, 2))])
+    scales = np.concatenate([scales, np.full((nw + n, 1), 1e-6)], 1)
+    opac = np.concatenate([np.ones(nw), rng.uniform(0.3, 0.9, n)])
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    q, _ = quat.normal_to_quaternion(t(normals))
+    return tt.GaussianAttrs(
+        means=t(means), scales=t(scales), rotations=q, opacities=t(opac),
+        colors=t(rng.uniform(0, 1, (nw + n, 3))), confidences=t(rng.uniform(0, 1, nw + n)),
+        valid=torch.ones(nw + n, dtype=torch.bool, device=dev),
+    )
+
+
+def scene_entries(attrs, cfg, dev, shape=SHAPE):
     """(entries, tile_start, tile_len), ntx of `attrs` seen by the identity camera."""
     cam = tt.Camera(torch.eye(4, device=dev), geo.intrinsics_from_fov(60.0, 60.0, device=dev))
-    p2d, _, dz, iv = pp.preprocess(attrs, cam, SHAPE, cfg)
-    b = binning.bin_entries(p2d, dz, iv, SHAPE, cfg)
-    _, _, ntx, _ = binning.bin_tile_dims(SHAPE, cfg)
+    p2d, _, dz, iv = pp.preprocess(attrs, cam, shape, cfg)
+    b = binning.bin_entries(p2d, dz, iv, shape, cfg)
+    _, _, ntx, _ = binning.bin_tile_dims(shape, cfg)
     return (renderer.gather_entries(p2d, b.gid), b.tile_start, b.tile_len), ntx
 
 
@@ -120,6 +148,52 @@ def test_kernels_match_plain(cuda, cfg_id):
     assert float((i_k - i_p).abs().max()) <= 1e-5 * float(i_p.abs().max())
     assert int((c_k != c_p).sum()) <= 2  # only where some w * mask meets 0.03 within rounding
     assert all(k.launches > 0 for k in cp.KERNELS)
+
+
+# the forward kernel at K = 128 and 8, at K = 20 (not a multiple of the
+# 8 entries whose alphas it evaluates together: a chunk ends with 4 taken
+# one by one), and at tiles for which the wrapper picks each cluster size
+# it can: 4 (16x32), 2 (6x32), 1 (3x32)
+FWD_CFGS = {
+    **CFGS,
+    "k20": dataclasses.replace(CFGS["k128"], chunk=20),
+    "c2": dataclasses.replace(CFGS["k128"], tile_h=6),
+    "c1": dataclasses.replace(CFGS["k128"], tile_h=3),
+}
+FWD_CLUSTER = {"k128": 4, "k8": 4, "k20": 4, "c2": 2, "c1": 1}
+FWD_SCENES = {"small_surfels_64": (small_surfel_scene, SHAPE), "wall_edge_128": (wall_edge_scene, (128, 128))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_id", list(FWD_CFGS))
+@pytest.mark.parametrize("scene_id", list(FWD_SCENES))
+def test_fwd_kernel_matches_plain(cuda, scene_id, cfg_id):
+    """The forward kernel, a cluster of blocks per tile, against its plain
+    version: on the small-surfel scene (most (entry, 32-pixel row) pairs
+    culled) and on a 128x128 view of 32 tiles where an opaque wall stops
+    some tiles after one chunk and crosses others mid-tile. Images within
+    2e-5, depth 1e-4, the chunks done equal, and five launches bitwise
+    equal."""
+    cfg = FWD_CFGS[cfg_id]
+    make, shape = FWD_SCENES[scene_id]
+    args, ntx = scene_entries(make(cuda), cfg, cuda, shape)
+    assert cp.fwd_cluster_size(cfg) == FWD_CLUSTER[cfg_id]
+    n0 = cp.fwd_kernel.launches
+    runs = [cp.composite_fwd(*args, ntx, cfg) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert cp.fwd_kernel.launches == n0 + 5
+    o_k, o_p = runs[0], cp.composite_fwd_plain(*args, ntx, cfg)
+    rows = [r for r in range(tt.O_TRANS + 1) if r != tt.O_DEPTH]
+    torch.testing.assert_close(o_k[:, rows], o_p[:, rows], rtol=0, atol=2e-5)
+    torch.testing.assert_close(o_k[:, tt.O_DEPTH], o_p[:, tt.O_DEPTH], rtol=0, atol=1e-4)
+    assert torch.equal(o_k[:, tt.O_STOP :], o_p[:, tt.O_STOP :])
+    assert all(torch.equal(runs[0].view(torch.int32), r.view(torch.int32)) for r in runs[1:])
+    stop = o_k[:, tt.O_STOP, 0]
+    live, all_rows = cp.live_warp_rows(*args, stop, ntx, cfg)
+    assert 0 < live < all_rows
+    if scene_id == "wall_edge_128" and cfg_id == "k128":
+        assert len(args[1]) >= 32
+        assert bool((stop == 1).any()) and int(stop.max()) >= 3
 
 
 @pytest.mark.cuda
@@ -190,6 +264,13 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         cp.composite_fwd(ent, ts.long(), ts, 1, cfg)
     with pytest.raises(ValueError):
         cp.composite_stats(ent, ts, ts, torch.zeros((2, 100), device=cuda), 0.03, 1, cfg)
+    # the forward launch refuses a cluster size that does not split the
+    # tile into blocks of whole pixel rows and whole warps
+    out = torch.empty((2, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
+    for bad in (3, 5, 0):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cp.fwd_kernel.launch(ent.data_ptr(), 256, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 2, bad,
+                                 *cp._tail(1, cfg, cuda))
 
 
 @pytest.mark.cuda
