@@ -51,6 +51,11 @@ class MapConfig:
     spawn_voxel_size: float = 0.02
     batch_size: int = 8
     active_size: int = 3
+    # render a train step's views through one forward and one backward
+    # compositor launch (`renderer.render_views_batched`); honored where the
+    # views render compacted subsets (`subset_bucket` set), as in the
+    # reference; off by default
+    fused_view_kernel: bool = False
     mean_lr: float = 5e-4
     rotation_lr: float = 5e-4
     opacity_lr: float = 1e-2

@@ -11,6 +11,7 @@ confidence update and the periodic prune.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -23,9 +24,10 @@ from ..render.renderer import (
     prepare_view_bins,
     render_stats,
     render_view,
+    render_views_batched,
     subset_view,
 )
-from ..render.types import Camera, RasterConfig
+from ..render.types import Camera, RasterConfig, RenderOutput
 from . import gaussians as gm
 from . import keyframes as kf
 from . import losses
@@ -82,23 +84,36 @@ def batch_loss(
     by `counts` (V,), the times each view was drawn, over their total, i.e.
     the mean over the drawn batch. `bins` are per-view frozen `BinResult`s;
     `subsets` per-view (sel, sel_valid, inv) compactions the bins were built
-    on. Returns (loss, per_frame_error detached)."""
+    on. With `cfg.fused_view_kernel` and `subsets`, the views render
+    through one compositor launch (`render_views_batched`). Returns (loss,
+    per_frame_error detached)."""
     rgb_gt, depth_gt, extrinsics, intrinsics = batch
     v, _, h, w = rgb_gt.shape
+    if cfg.fused_view_kernel and subsets is None:
+        warnings.warn(
+            "fused_view_kernel=True is only honored on the batched-subset "
+            "path (subset_bucket set, single-device); falling back to "
+            "per-view dispatch",
+            stacklevel=2,
+        )
     attrs = gm.attrs_of(dataclasses.replace(state, **params), cfg)
     packed = pack_attrs(attrs) if subsets is not None else None
     background = torch.tensor(cfg.background, dtype=torch.float32, device=rgb_gt.device)
+    cams = [Camera(extrinsic=extrinsics[i], intrinsic=intrinsics[i]) for i in range(v)]
+    views = [attrs if subsets is None else subset_view(packed, subsets[i]) for i in range(v)]
+    if cfg.fused_view_kernel and subsets is not None:
+        out, _ = render_views_batched(views, cams, (h, w), raster_cfg, background=background, bin_results=bins)
+        outs = [RenderOutput(**{f.name: getattr(out, f.name)[i] for f in dataclasses.fields(out)}) for i in range(v)]
+    else:
+        outs = [
+            render_view(
+                views[i], cams[i], (h, w), raster_cfg, background=background,
+                bin_result=None if bins is None else bins[i],
+            )[0]
+            for i in range(v)
+        ]
     loss_t, err_t = [], []
-    for i in range(v):
-        attrs_v = attrs if subsets is None else subset_view(packed, subsets[i])
-        o, _ = render_view(
-            attrs_v,
-            Camera(extrinsic=extrinsics[i], intrinsic=intrinsics[i]),
-            (h, w),
-            raster_cfg,
-            background=background,
-            bin_result=None if bins is None else bins[i],
-        )
+    for i, o in enumerate(outs):
         lv, ev = _view_loss(o, rgb_gt[i], depth_gt[i], intrinsics[i])
         loss_t.append(lv)
         err_t.append(ev)

@@ -1,11 +1,15 @@
 """Confidence planner: exploration + distance-aware uncertainty utility (port
 of `activegs_tpu/planning/confidence.py`).
 
-Candidate views are scored one after another: each candidate compacts the
-map to the gaussians it sees and renders once at `render_ratio` of the
-sensor resolution through `render_view`, so it launches the forward
-compositor kernel once. The entry budget and the subset bucket are measured
-over all candidates first (`_candidate_entry_stats`), as the reference does.
+A plan step scores its candidate views as one batch, as the reference's
+compiled map over candidates does: each candidate compacts the map to the
+gaussians it sees and is preprocessed and binned on its own, then all
+candidates render at `render_ratio` of the sensor resolution through
+`render_views_batched`, one forward compositor launch per group of
+candidates (a group's entry streams take at most `GROUP_BYTES`). The entry
+budget and the subset bucket are measured over all candidates first
+(`_candidate_entry_stats`), as the reference does, so every candidate's
+stream has the same length. `candidate_view_stats` scores one view.
 """
 
 from __future__ import annotations
@@ -20,9 +24,12 @@ from ..mapping import voxel_map as vm
 from ..mapping.trainer import pick_entry_bucket, pick_subset_bucket
 from ..render import binning as rb
 from ..render import preprocess as rp
-from ..render.renderer import compact_in_view, pack_attrs, render_view, subset_view
-from ..render.types import Camera
+from ..render.renderer import compact_in_view, pack_attrs, render_view, render_views_batched, subset_view
+from ..render.types import PARAM_DIM, Camera
 from .planner import PlanBase
+
+# the most bytes of concatenated entry streams one batched candidate launch takes
+GROUP_BYTES = 4 << 30
 
 
 @torch.no_grad()
@@ -61,12 +68,25 @@ def candidate_view_stats(
     in-view gaussians (exact: the others contribute nothing); `packed` is
     pack_attrs(attrs), hoisted out of the candidate loop."""
     cam = Camera(extrinsic=extrinsic, intrinsic=intrinsic)
-    if subset_bucket is not None:
-        _, _, _, iv = rp.preprocess(attrs, cam, shape, raster_cfg)
-        sel, selv, inv, _ = compact_in_view(iv, subset_bucket)
-        attrs = subset_view(packed, (sel, selv, inv))
+    attrs = _candidate_attrs(attrs, cam, shape, raster_cfg, subset_bucket, packed)
     out, _ = render_view(attrs, cam, shape, raster_cfg, entry_budget=entry_budget)
-    depth = out.depth[0]
+    return _view_utility(out.depth[0], out.confidence[0], extrinsic, intrinsic, valid, unexplored, depth_range,
+                         grid, explore_only)
+
+
+def _candidate_attrs(attrs, cam, shape, raster_cfg, subset_bucket, packed):
+    """The gaussians a candidate renders: its in-view subset in a bucket of
+    `subset_bucket` (exact: the others contribute nothing), or all."""
+    if subset_bucket is None:
+        return attrs
+    _, _, _, iv = rp.preprocess(attrs, cam, shape, raster_cfg)
+    sel, selv, inv, _ = compact_in_view(iv, subset_bucket)
+    return subset_view(packed, (sel, selv, inv))
+
+
+def _view_utility(depth, conf, extrinsic, intrinsic, valid, unexplored, depth_range, grid, explore_only):
+    """(explore, exploit) of one candidate from its rendered depth and
+    confidence (h, w)."""
 
     # exploration: visible-and-unexplored voxel fraction
     depth_voxel = torch.where(depth < 0.001, 1e4, depth)
@@ -78,7 +98,6 @@ def candidate_view_stats(
         return explore, torch.zeros_like(explore)
 
     # exploitation: distance-aware uncertainty
-    conf = out.confidence[0]
     conf = torch.where(depth > depth_range[1], 1.0, conf)
     conf = torch.where(valid, conf, 1.0)
     depth_surface = torch.where(depth < 0.001, depth_range[1] * 0.5, depth)
@@ -102,18 +121,36 @@ def _confidence_utility_batch(
     explore_only=False,
     subset_bucket=None,
 ):
-    """Per-candidate (explore (N,), exploit (N,)) utilities, NaN -> 0."""
+    """Per-candidate (explore (N,), exploit (N,)) utilities, NaN -> 0: each
+    group of `utility_groups` renders through one `render_views_batched`
+    call at the shared `entry_budget`, then each candidate's utility is
+    taken from its slice of the group's images."""
     attrs = gm.attrs_of(gm_state, map_cfg)
     packed = pack_attrs(attrs) if subset_bucket is not None else None
-    explore, exploit = zip(*(
-        candidate_view_stats(
-            attrs, ext, intrinsic, valid, unexplored, depth_range, grid, shape, raster_cfg,
-            entry_budget, explore_only, subset_bucket, packed,
-        )
-        for ext, valid in zip(candidates, valid_masks)
-    ))
-    explore, exploit = torch.stack(explore), torch.stack(exploit)
+    cams = [Camera(extrinsic=ext, intrinsic=intrinsic) for ext in candidates]
+    stats = []
+    for group in utility_groups(len(cams), attrs.num, shape, raster_cfg, entry_budget, subset_bucket):
+        views = [_candidate_attrs(attrs, cams[i], shape, raster_cfg, subset_bucket, packed) for i in group]
+        out, _ = render_views_batched(views, [cams[i] for i in group], shape, raster_cfg, entry_budget=entry_budget)
+        stats += [
+            _view_utility(out.depth[j, 0], out.confidence[j, 0], candidates[i], intrinsic, valid_masks[i],
+                          unexplored, depth_range, grid, explore_only)
+            for j, i in enumerate(group)
+        ]
+    explore, exploit = (torch.stack(x) for x in zip(*stats))
     return torch.nan_to_num(explore, nan=0.0), torch.nan_to_num(exploit, nan=0.0)
+
+
+def utility_groups(n: int, num_gaussians: int, shape, raster_cfg, entry_budget, subset_bucket) -> list[range]:
+    """The candidates [0, n) in the consecutive groups that
+    `_confidence_utility_batch` renders together: as many as keep the
+    group's entry streams within GROUP_BYTES (at least one), each stream
+    that of the subset bucket (or of all `num_gaussians`) at
+    `entry_budget`."""
+    m = num_gaussians if subset_bucket is None else subset_bucket
+    stream_bytes = PARAM_DIM * 4 * rb.stream_length(m, shape, raster_cfg, entry_budget)
+    per = max(1, GROUP_BYTES // stream_bytes)
+    return [range(i, min(i + per, n)) for i in range(0, n, per)]
 
 
 def candidate_utilities(planner: PlanBase, gm_state, vstate, grid, candidates, simulator, explore_only):
@@ -141,6 +178,9 @@ def candidate_utilities(planner: PlanBase, gm_state, vstate, grid, candidates, s
     t = time.perf_counter() - t0
     # sub-phase telemetry, merged into step_stats' plan_times by plan()
     planner.last_utility_times = {"stats": round(t_stats, 3), "batch": round(t - t_stats, 3)}
+    planner.last_utility_groups = len(utility_groups(
+        len(cands), gm_state.capacity, (h, w), planner.utility_raster_cfg, entry_budget, subset_bucket
+    ))
     return explore, exploit, t
 
 

@@ -126,6 +126,18 @@ def entry_count(params2d, in_view, image_shape, cfg: RasterConfig) -> torch.Tens
     return torch.sum(kept_n.to(torch.int64))
 
 
+def stream_length(n: int, image_shape: tuple[int, int], cfg: RasterConfig, entry_budget: int | None = None) -> int:
+    """Length E of the entry stream `bin_entries` gives a view of `n`
+    gaussians: the budget (`entry_budget`, or `entry_budget_mult` per
+    gaussian) plus a chunk's pad per tile, K-aligned, at most the most
+    entries the view can bin."""
+    _, _, ntx, nty = bin_tile_dims(image_shape, cfg)
+    num_tiles, kchunk = ntx * nty, cfg.chunk
+    e_alloc = _round_up(n * cfg.max_dup + num_tiles * kchunk, kchunk)
+    base = int(n * cfg.entry_budget_mult) if entry_budget is None else entry_budget
+    return min(_round_up(base + num_tiles * (kchunk - 1), kchunk), e_alloc)
+
+
 def bin_entries(
     params2d: torch.Tensor,
     depth_z: torch.Tensor,
@@ -167,9 +179,7 @@ def bin_entries(
     rank = torch.arange(ct_s.shape[0], device=dev) - first[ct_s]
     pos = start[ct_s] + rank
 
-    e_alloc = _round_up(n * max_dup + num_tiles * kchunk, kchunk)
-    base = int(n * cfg.entry_budget_mult) if entry_budget is None else entry_budget
-    e_budget = min(_round_up(base + num_tiles * (kchunk - 1), kchunk), e_alloc)
+    e_budget = stream_length(n, image_shape, cfg, entry_budget)
 
     start_c = torch.clamp(start, max=e_budget)
     pad_len_c = torch.minimum(pad_len, e_budget - start_c)

@@ -14,6 +14,12 @@ whole tile, once every pixel's transmittance is <= term_eps (checked only
 between chunks); row `O_STOP` records the chunks done, which the backward
 and stats replays depend on.
 
+The forward and backward passes also take several views at once (`tpv`,
+tiles per view, as the reference's static tuple has it): their tile tables
+and entry streams concatenated, tile t is tile t % tpv of its view's grid.
+`tpv=None` means one view (tpv = T). The stats kernel stays single-view, as
+in the reference.
+
 Each wrapper takes the plain version only for a CPU tensor. For a CUDA
 tensor it launches its kernel (counted in `<kernel>.launches`) or raises.
 """
@@ -29,12 +35,14 @@ from ._build import CudaKernel
 from .types import O_CONF, O_DEPTH, O_STOP, O_TRANS, OUT_ROWS, PARAM_DIM, USED_ROWS, RasterConfig
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+INT32_MAX = 2**31 - 1  # tile_start is int32, as in the reference
 # common tail: ntx, tile_w, tile_h, K, alpha_cut, alpha_max, term_eps,
 # depth_lo, depth_hi, stream
 _TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
-# the forward kernel also takes the cluster size after the tile count
-fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I, _I] + _TAIL)
-bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _P, _I] + _TAIL)
+# the forward and backward kernels take the tiles per view after the tile
+# count, the forward kernel then the cluster size
+fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I, _I, _I] + _TAIL)
+bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I] + _TAIL)
 stats_kernel = CudaKernel("composite_stats", [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL)
 KERNELS = (fwd_kernel, bwd_kernel, stats_kernel)
 
@@ -47,8 +55,18 @@ def _tail(ntx: int, cfg: RasterConfig, device) -> list:
     ]
 
 
-def _check(entries, tile_start, tile_len, cfg: RasterConfig, **tensors) -> tuple[int, int]:
-    """Validate the kernels' inputs; returns (E, T)."""
+def views_tpv(num_tiles: int, tpv: int | None) -> int:
+    """Tiles per view of a grid of `num_tiles` tiles: `tpv`, or `num_tiles`
+    for None (one view). Refuses a `tpv` that does not divide the grid."""
+    if tpv is None:
+        return num_tiles
+    if tpv <= 0 or num_tiles % tpv:
+        raise ValueError(f"tiles per view {tpv} does not divide the {num_tiles} tiles of the grid")
+    return tpv
+
+
+def _check(entries, tile_start, tile_len, cfg: RasterConfig, tpv: int | None = None, **tensors) -> tuple[int, int, int]:
+    """Validate the kernels' inputs; returns (E, T, tiles per view)."""
     if entries.device.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {entries.device}")
     p = cfg.tile_pixels
@@ -59,6 +77,8 @@ def _check(entries, tile_start, tile_len, cfg: RasterConfig, **tensors) -> tuple
     e = entries.shape[1]
     if e % cfg.chunk:
         raise ValueError(f"entry count {e} is not a multiple of the chunk {cfg.chunk}")
+    if e > INT32_MAX:
+        raise ValueError(f"entry count {e}: the int32 tile_start offsets reach at most {INT32_MAX}")
     t = tile_start.shape[0]
     for name, x in (("tile_start", tile_start), ("tile_len", tile_len)):
         if x.dtype != torch.int32 or x.shape != (t,):
@@ -72,7 +92,7 @@ def _check(entries, tile_start, tile_len, cfg: RasterConfig, **tensors) -> tuple
             raise ValueError("all inputs must be on one device")
         if not x.is_contiguous():
             raise ValueError("inputs must be contiguous")
-    return e, t
+    return e, t, views_tpv(t, tpv)
 
 
 # --------------------------------------------------------------------------
@@ -80,9 +100,12 @@ def _check(entries, tile_start, tile_len, cfg: RasterConfig, **tensors) -> tuple
 # --------------------------------------------------------------------------
 
 
-def tile_pixel_coords(num_tiles: int, ntx: int, cfg: RasterConfig, device):
-    """Pixel-center coordinates (T, 1, P) of every tile."""
+def tile_pixel_coords(num_tiles: int, ntx: int, cfg: RasterConfig, device, tpv: int | None = None):
+    """Pixel-center coordinates (T, 1, P) of every tile; with `tpv`, tile t
+    is tile t % tpv of its view's grid."""
     t = torch.arange(num_tiles, device=device)[:, None]
+    if tpv is not None:
+        t = t % views_tpv(num_tiles, tpv)
     pix = torch.arange(cfg.tile_pixels, device=device)[None, :]
     px = ((t % ntx) * cfg.tile_w + pix % cfg.tile_w).to(torch.float32) + 0.5
     py = ((t // ntx) * cfg.tile_h + pix // cfg.tile_w).to(torch.float32) + 0.5
@@ -120,10 +143,10 @@ def _live_tiles(c: int, nch, trans, cfg: RasterConfig):
     return torch.nonzero((c < nch) & (trans.amax(dim=(1, 2)) > cfg.term_eps)).squeeze(1)
 
 
-def composite_fwd_plain(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
+def composite_fwd_plain(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig, tpv: int | None = None):
     t_n, k = tile_start.shape[0], cfg.chunk
     dev = entries.device
-    px, py = tile_pixel_coords(t_n, ntx, cfg, dev)
+    px, py = tile_pixel_coords(t_n, ntx, cfg, dev, tpv)
     nch = (tile_len.to(torch.int64) + k - 1) // k
     trans = torch.ones((t_n, 1, cfg.tile_pixels), device=dev)
     acc = torch.zeros((t_n, 8, cfg.tile_pixels), device=dev)
@@ -146,10 +169,12 @@ def composite_fwd_plain(entries, tile_start, tile_len, ntx: int, cfg: RasterConf
     return torch.cat([acc[:, 0:6], acc[:, 7:8], acc[:, 6:7], trans, stop, zeros], dim=1)
 
 
-def composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: RasterConfig):
+def composite_bwd_plain(
+    entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: RasterConfig, tpv: int | None = None
+):
     t_n, k = tile_start.shape[0], cfg.chunk
     dev = entries.device
-    px, py = tile_pixel_coords(t_n, ntx, cfg, dev)
+    px, py = tile_pixel_coords(t_n, ntx, cfg, dev, tpv)
     stop = out_fwd[:, O_STOP, 0].to(torch.int64)
     g_feat = torch.cat([gout[:, 0:6], gout[:, O_CONF : O_CONF + 1]], dim=1)  # (T, 7, P)
     g_depth = gout[:, O_DEPTH : O_DEPTH + 1]
@@ -216,13 +241,15 @@ def composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx: int, 
     return dentries
 
 
-def live_warp_rows(entries, tile_start, tile_len, stop, ntx: int, cfg: RasterConfig) -> tuple[int, int]:
+def live_warp_rows(
+    entries, tile_start, tile_len, stop, ntx: int, cfg: RasterConfig, tpv: int | None = None
+) -> tuple[int, int]:
     """What the forward and backward kernels' culls keep, in plain PyTorch:
     of the (entry, 32-pixel row) pairs of each tile's real entries in the
     chunks it reached (`stop`, (T,)), how many have some alpha > 0. A
     32-pixel row is one warp of the kernels. Returns (live, all)."""
     t_n, k = tile_start.shape[0], cfg.chunk
-    px, py = tile_pixel_coords(t_n, ntx, cfg, entries.device)
+    px, py = tile_pixel_coords(t_n, ntx, cfg, entries.device, tpv)
     stop = stop.to(torch.int64)
     live = 0
     for c in range(int(stop.max()) if t_n else 0):
@@ -270,26 +297,27 @@ def fwd_cluster_size(cfg: RasterConfig) -> int:
     return next(c for c in (4, 2, 1) if cfg.tile_h % c == 0 and (cfg.tile_pixels // c) % 32 == 0)
 
 
-def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
-    """Forward composite -> (T, OUT_ROWS, P). Kernel: csrc/composite_fwd.cu,
-    launched as one cluster of `fwd_cluster_size(cfg)` blocks per tile."""
+def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig, tpv: int | None = None):
+    """Forward composite -> (T, OUT_ROWS, P), over views of `tpv` tiles
+    each (None: one view). Kernel: csrc/composite_fwd.cu, launched as one
+    cluster of `fwd_cluster_size(cfg)` blocks per tile."""
     if entries.device.type == "cpu":
-        return composite_fwd_plain(entries, tile_start, tile_len, ntx, cfg)
-    e, t = _check(entries, tile_start, tile_len, cfg)
+        return composite_fwd_plain(entries, tile_start, tile_len, ntx, cfg, tpv)
+    e, t, tpv = _check(entries, tile_start, tile_len, cfg, tpv)
     out = torch.empty((t, OUT_ROWS, cfg.tile_pixels), dtype=torch.float32, device=entries.device)
     fwd_kernel.launch(
-        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out.data_ptr(), t,
+        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out.data_ptr(), t, tpv,
         fwd_cluster_size(cfg), *_tail(ntx, cfg, entries.device),
     )
     return out
 
 
-def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: RasterConfig):
-    """Per-entry gradients (PARAM_DIM, E) from the output cotangent `gout`.
-    Kernel: csrc/composite_bwd.cu."""
+def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: RasterConfig, tpv: int | None = None):
+    """Per-entry gradients (PARAM_DIM, E) from the output cotangent `gout`,
+    over views of `tpv` tiles each. Kernel: csrc/composite_bwd.cu."""
     if entries.device.type == "cpu":
-        return composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx, cfg)
-    e, t = _check(entries, tile_start, tile_len, cfg, out_fwd=out_fwd, gout=gout)
+        return composite_bwd_plain(entries, tile_start, tile_len, out_fwd, gout, ntx, cfg, tpv)
+    e, t, tpv = _check(entries, tile_start, tile_len, cfg, tpv, out_fwd=out_fwd, gout=gout)
     # zeros: the kernel writes rows 0..17 of the chunks the forward pass
     # reached; unreached chunks, rows 18..23 and the budget's tail stay zero
     dentries = torch.zeros_like(entries)
@@ -297,7 +325,7 @@ def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: R
     order = torch.empty(t, dtype=torch.int32, device=entries.device)
     bwd_kernel.launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out_fwd.data_ptr(),
-        gout.data_ptr(), dentries.data_ptr(), order.data_ptr(), t, *_tail(ntx, cfg, entries.device),
+        gout.data_ptr(), dentries.data_ptr(), order.data_ptr(), t, tpv, *_tail(ntx, cfg, entries.device),
     )
     return dentries
 
@@ -308,34 +336,35 @@ def composite_stats(entries, tile_start, tile_len, mask, weight_thres: float, nt
     `mask` is (T, P). Kernel: csrc/composite_stats.cu."""
     if entries.device.type == "cpu":
         return composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres, ntx, cfg)
-    e, t = _check(entries, tile_start, tile_len, cfg, mask=mask)
+    e, _, _ = _check(entries, tile_start, tile_len, cfg, mask=mask)
     # zeros: the kernel writes only the chunks its replay reaches
     imp = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
     cnt = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
     stats_kernel.launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), mask.data_ptr(),
-        weight_thres, imp.data_ptr(), cnt.data_ptr(), t, *_tail(ntx, cfg, entries.device),
+        weight_thres, imp.data_ptr(), cnt.data_ptr(), len(tile_start), *_tail(ntx, cfg, entries.device),
     )
     return imp, cnt
 
 
 class _Composite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, entries, tile_start, tile_len, ntx, cfg):
-        out = composite_fwd(entries, tile_start, tile_len, ntx, cfg)
+    def forward(ctx, entries, tile_start, tile_len, ntx, cfg, tpv):
+        out = composite_fwd(entries, tile_start, tile_len, ntx, cfg, tpv)
         ctx.save_for_backward(entries, tile_start, tile_len, out)
-        ctx.ntx, ctx.cfg = ntx, cfg
+        ctx.ntx, ctx.cfg, ctx.tpv = ntx, cfg, tpv
         return out
 
     @staticmethod
     def backward(ctx, gout):
         entries, tile_start, tile_len, out = ctx.saved_tensors
         dentries = composite_bwd(
-            entries, tile_start, tile_len, out, gout.contiguous(), ctx.ntx, ctx.cfg
+            entries, tile_start, tile_len, out, gout.contiguous(), ctx.ntx, ctx.cfg, ctx.tpv
         )
-        return dentries, None, None, None, None
+        return dentries, None, None, None, None, None
 
 
-def composite(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig):
-    """Differentiable tile composite (fwd kernel forward, bwd kernel backward)."""
-    return _Composite.apply(entries, tile_start, tile_len, ntx, cfg)
+def composite(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig, tpv: int | None = None):
+    """Differentiable tile composite (fwd kernel forward, bwd kernel
+    backward), over views of `tpv` tiles each (None: one view)."""
+    return _Composite.apply(entries, tile_start, tile_len, ntx, cfg, tpv)

@@ -19,6 +19,8 @@
 // drift where alpha is near 0.99. The kernel writes rows 0..17 of the
 // chunks it replays; the caller passes `dentries` zeroed, which leaves the
 // chunks at or past the stop, rows 18..23 and the budget's tail at zero.
+// As in the forward kernel, the grid may hold several concatenated views of
+// `tpv` tiles each; tile t lies at tile t % tpv of its view's grid.
 //
 // What bounds it on the H100: FP32 CUDA-core work. The gradient needs 105
 // operations per real (entry, pixel) pair (a multiply-add counted as 2): 30
@@ -234,8 +236,8 @@ __global__ void __launch_bounds__(512, 2)
 bwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
            const float* __restrict__ out_fwd, const float* __restrict__ gout,
-           const int* __restrict__ order, float* __restrict__ dentries, int ntx, int tile_w,
-           int tile_h, int kchunk_arg, Cfg cfg) {
+           const int* __restrict__ order, float* __restrict__ dentries, int tpv, int ntx,
+           int tile_w, int tile_h, int kchunk_arg, Cfg cfg) {
   const int kchunk = KT > 0 ? KT : kchunk_arg;
   const int sub = kchunk < kSub ? kchunk : kSub;
   const int nsub = kchunk / sub;
@@ -252,8 +254,9 @@ bwd_kernel(const float* __restrict__ entries, long long e_total,
   const int warp = p >> 5;
   const int col = xcol<kUsedRows, 16>(lane);
   const int start = tile_start[tile];
-  const float px = (float)((tile % ntx) * tile_w + p % tile_w) + 0.5f;
-  const float py = (float)((tile / ntx) * tile_h + p / tile_w) + 0.5f;
+  const int vt = tile % tpv;  // the tile's place in its view's grid
+  const float px = (float)((vt % ntx) * tile_w + p % tile_w) + 0.5f;
+  const float py = (float)((vt / ntx) * tile_h + p / tile_w) + 0.5f;
   const long long tile_off = (long long)tile * kOutRows * npix;
   const int stop = (int)out_fwd[tile_off + 9 * npix];
 
@@ -401,14 +404,16 @@ constexpr int kOrderThreads = 256;
 }  // namespace composite
 
 // `order` is scratch of num_tiles ints: the ordering kernel writes it, the
-// replay reads it.
+// replay reads it. The `num_tiles` tiles are views of `tpv` tiles each (tpv
+// divides num_tiles; tpv = num_tiles for one view).
 extern "C" int composite_bwd_launch(const float* entries, long long e_total,
                                     const int* tile_start, const int* tile_len,
                                     const float* out_fwd, const float* gout, float* dentries,
-                                    int* order, int num_tiles, int ntx, int tile_w, int tile_h,
-                                    int kchunk, float alpha_cut, float alpha_max, float term_eps,
-                                    float depth_lo, float depth_hi, void* stream) {
+                                    int* order, int num_tiles, int tpv, int ntx, int tile_w,
+                                    int tile_h, int kchunk, float alpha_cut, float alpha_max,
+                                    float term_eps, float depth_lo, float depth_hi, void* stream) {
   if (num_tiles == 0) return 0;
+  if (tpv <= 0 || num_tiles % tpv != 0) return (int)cudaErrorInvalidValue;
   if (kchunk % (kchunk < composite::kSub ? kchunk : composite::kSub))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -424,7 +429,7 @@ extern "C" int composite_bwd_launch(const float* entries, long long e_total,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<num_tiles, npix, smem, st>>>(entries, e_total, tile_start, tile_len, out_fwd, gout,
-                                        order, dentries, ntx, tile_w, tile_h, kchunk, cfg);
+                                        order, dentries, tpv, ntx, tile_w, tile_h, kchunk, cfg);
   return (int)cudaGetLastError();
 }
 

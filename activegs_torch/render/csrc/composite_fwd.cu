@@ -10,7 +10,9 @@
 // 7 feature channels (rgb, camera normal, confidence) and depth. The tile
 // stops as a whole once max_pixels(T) <= term_eps, checked only between
 // chunks; row 9 records the chunks done, which the backward and stats
-// replays depend on.
+// replays depend on. One launch may composite several views whose tile
+// tables and entry streams were concatenated (`tpv` tiles a view, as the
+// reference's `tpv`): tile t is then tile t % tpv of its view's grid.
 //
 // What bounds it on the H100: FP32 CUDA-core arithmetic. A pair costs 50
 // operations (a multiply-add counted as 2): 17 for alpha (the conic
@@ -157,22 +159,25 @@ __device__ __forceinline__ void composite_entries(const float4* sh, int k0, cons
 
 // Tile `tile`'s segment and the center of its pixel `pix` (0 .. P-1,
 // row-major in the tile): `tile_of` for a thread whose pixel is not
-// threadIdx.x.
+// threadIdx.x. The grid holds views of `tpv` tiles each, one after another
+// (a single view: tpv = the tile count), and the pixel lies in tile
+// tile % tpv of its view's ntx-wide tile grid.
 __device__ __forceinline__ Tile split_tile_of(const int* __restrict__ tile_start,
                                               const int* __restrict__ tile_len, int tile, int pix,
-                                              int ntx, int tile_w, int tile_h, int kchunk) {
+                                              int tpv, int ntx, int tile_w, int tile_h, int kchunk) {
   Tile tl;
   tl.start = tile_start[tile];
   tl.nch = (tile_len[tile] + kchunk - 1) / kchunk;
-  tl.px = (float)((tile % ntx) * tile_w + pix % tile_w) + 0.5f;
-  tl.py = (float)((tile / ntx) * tile_h + pix / tile_w) + 0.5f;
+  const int vt = tile % tpv;
+  tl.px = (float)((vt % ntx) * tile_w + pix % tile_w) + 0.5f;
+  tl.py = (float)((vt / ntx) * tile_h + pix / tile_w) + 0.5f;
   return tl;
 }
 
 __global__ void __launch_bounds__(512)
 fwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
-           float* __restrict__ out, int ntx, int tile_w, int tile_h, int kchunk, Cfg cfg) {
+           float* __restrict__ out, int tpv, int ntx, int tile_w, int tile_h, int kchunk, Cfg cfg) {
   extern __shared__ float4 sh[];  // [kchunk][kVecs]
   __shared__ int above[2];       // by chunk parity: some pixel of this block has T > term_eps
   cg::cluster_group cluster = cg::this_cluster();
@@ -180,7 +185,7 @@ fwd_kernel(const float* __restrict__ entries, long long e_total,
   const int tile = blockIdx.x / nsplit;
   const int npix = tile_w * tile_h;
   const int p = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
-  const Tile tl = split_tile_of(tile_start, tile_len, tile, p, ntx, tile_w, tile_h, kchunk);
+  const Tile tl = split_tile_of(tile_start, tile_len, tile, p, tpv, ntx, tile_w, tile_h, kchunk);
   const int lane = threadIdx.x & 31;
 
   float trans = 1.0f;
@@ -248,13 +253,16 @@ inline bool splits(int cluster, int tile_w, int tile_h) {
 }  // namespace composite
 
 // `cluster` blocks render each tile, each `tile_h / cluster` pixel rows.
+// The `num_tiles` tiles are views of `tpv` tiles each (tpv divides
+// num_tiles; tpv = num_tiles for one view).
 extern "C" int composite_fwd_launch(const float* entries, long long e_total,
                                     const int* tile_start, const int* tile_len, float* out,
-                                    int num_tiles, int cluster, int ntx, int tile_w, int tile_h,
-                                    int kchunk, float alpha_cut, float alpha_max, float term_eps,
-                                    float depth_lo, float depth_hi, void* stream) {
+                                    int num_tiles, int tpv, int cluster, int ntx, int tile_w,
+                                    int tile_h, int kchunk, float alpha_cut, float alpha_max,
+                                    float term_eps, float depth_lo, float depth_hi, void* stream) {
   if (!composite::splits(cluster, tile_w, tile_h)) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
+  if (tpv <= 0 || num_tiles % tpv != 0) return (int)cudaErrorInvalidValue;
   const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
   int smem;
   cudaError_t err = composite::chunk_smem(kchunk, &smem);
@@ -263,7 +271,7 @@ extern "C" int composite_fwd_launch(const float* entries, long long e_total,
   const cudaLaunchConfig_t lc = composite::launch_config(num_tiles, cluster, tile_w * tile_h, smem,
                                                          (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&lc, composite::fwd_kernel, entries, e_total, tile_start, tile_len, out,
-                           ntx, tile_w, tile_h, kchunk, cfg);
+                           tpv, ntx, tile_w, tile_h, kchunk, cfg);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

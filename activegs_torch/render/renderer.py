@@ -1,7 +1,9 @@
 """Public rendering API (port of `activegs_tpu/render/renderer.py`).
 
 `render_view` renders one posed view with the full channel set through
-preprocess -> binning -> the differentiable tile composite; `render_stats`
+preprocess -> binning -> the differentiable tile composite;
+`render_views_batched` renders several through one compositor launch;
+`render_stats`
 returns per-gaussian importance/count from the stats kernel. The entry
 gather `params2d[gid]` and the per-view subset gather are
 `core.scatter.gather_rows`, whose adjoint sums by id in a fixed order, so a
@@ -27,6 +29,16 @@ def tiles_to_image(out_tiles: torch.Tensor, image_shape, cfg: RasterConfig) -> t
     c = out_tiles.shape[1]
     img = out_tiles.reshape(nty, ntx, c, th, tw).permute(2, 0, 3, 1, 4)
     return img.reshape(c, nty * th, ntx * tw)[:, :h, :w]
+
+
+def tiles_to_image_batched(out_tiles: torch.Tensor, v: int, image_shape, cfg: RasterConfig) -> torch.Tensor:
+    """(V * T, C, P) output of V concatenated views -> (V, C, h, w) images
+    in one relayout."""
+    h, w = image_shape
+    th, tw, ntx, nty = binning.bin_tile_dims(image_shape, cfg)
+    c = out_tiles.shape[1]
+    img = out_tiles.reshape(v, nty, ntx, c, th, tw).permute(0, 3, 1, 4, 2, 5)
+    return img.reshape(v, c, nty * th, ntx * tw)[:, :, :h, :w]
 
 
 def image_to_tiles(img: torch.Tensor, image_shape, cfg: RasterConfig) -> torch.Tensor:
@@ -58,6 +70,42 @@ def gather_entries(params2d: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     return gather_rows(params2d, torch.clamp(gid, min=0), gid >= 0).t().contiguous()
 
 
+def _view_entries(attrs, camera, image_shape, cfg, front_only, bin_result, entry_budget):
+    """(entry stream, bins, radius, in_view) of one view: preprocess, then
+    the frozen bins `bin_result` or binning at `entry_budget`."""
+    params2d, radius, depth_z, in_view = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
+    b = bin_result
+    if b is None:
+        b = binning.bin_entries(
+            params2d.detach(), depth_z.detach(), in_view, image_shape, cfg, entry_budget
+        )
+    return gather_entries(params2d, b.gid), b, radius, in_view
+
+
+def _render_output(img: torch.Tensor, background: torch.Tensor | None):
+    """(RenderOutput, transmittance) of the composited rows 0..O_TRANS of
+    one view, (C, h, w), or of a batch of views, (V, C, h, w): background
+    blend, opacity, and normals normalized and masked where visible."""
+    trans = img[..., O_TRANS : O_TRANS + 1, :, :]
+    rgb = img[..., 0:3, :, :]
+    if background is not None:
+        rgb = rgb + trans * background[:, None, None]
+    opacity = 1.0 - trans
+    vis = opacity.detach() > 1e-2
+    normal = img[..., 3:6, :, :]
+    n2 = torch.sum(normal * normal, dim=-3, keepdim=True)
+    normal = normal * torch.rsqrt(torch.clamp(n2, min=1e-24))
+    normal = normal * vis
+    output = RenderOutput(
+        rgb=rgb,
+        depth=img[..., O_DEPTH : O_DEPTH + 1, :, :],
+        normal=normal,
+        opacity=opacity,
+        confidence=img[..., O_CONF : O_CONF + 1, :, :],
+    )
+    return output, trans
+
+
 def render_view(
     attrs: GaussianAttrs,
     camera: Camera,
@@ -71,34 +119,13 @@ def render_view(
     """Render one view. Returns (RenderOutput, aux) with aux = {in_view,
     radius, transmittance, num_dropped}. Pass `bin_result` (from
     `prepare_view_bins`) to reuse frozen tile lists."""
-    params2d, radius, depth_z, in_view = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
-    b = bin_result
-    if b is None:
-        b = binning.bin_entries(
-            params2d.detach(), depth_z.detach(), in_view, image_shape, cfg, entry_budget
-        )
+    entries, b, radius, in_view = _view_entries(
+        attrs, camera, image_shape, cfg, front_only, bin_result, entry_budget
+    )
     _, _, ntx, _ = binning.bin_tile_dims(image_shape, cfg)
-    entries = gather_entries(params2d, b.gid)
     out_tiles = cp.composite(entries, b.tile_start, b.tile_len, ntx, cfg)
     img = tiles_to_image(out_tiles[:, : O_TRANS + 1], image_shape, cfg)
-
-    trans = img[O_TRANS : O_TRANS + 1]
-    rgb = img[0:3]
-    if background is not None:
-        rgb = rgb + trans * background[:, None, None]
-    opacity = 1.0 - trans
-    vis = opacity.detach() > 1e-2
-    normal = img[3:6]
-    n2 = torch.sum(normal * normal, dim=0, keepdim=True)
-    normal = normal * torch.rsqrt(torch.clamp(n2, min=1e-24))
-    normal = normal * vis
-    output = RenderOutput(
-        rgb=rgb,
-        depth=img[O_DEPTH : O_DEPTH + 1],
-        normal=normal,
-        opacity=opacity,
-        confidence=img[O_CONF : O_CONF + 1],
-    )
+    output, trans = _render_output(img, background)
     aux = {
         "in_view": in_view,
         "radius": radius,
@@ -106,6 +133,48 @@ def render_view(
         "num_dropped": b.num_dropped,
     }
     return output, aux
+
+
+def render_views_batched(
+    attrs_per_view: list,
+    cameras: list,
+    image_shape: tuple[int, int],
+    cfg: RasterConfig = RasterConfig(),
+    background: torch.Tensor | None = None,
+    bin_results: list | None = None,
+    entry_budget: int | None = None,
+):
+    """Render V posed views through one forward launch of the compositor
+    (and one backward launch under autograd). Each view is preprocessed
+    and binned as `render_view` does it (or takes its frozen bins from
+    `bin_results`); the entry streams are concatenated, view i's tile
+    starts offset by i * E, and the compositor runs once over the V * T
+    tiles with T tiles per view. Every view's entry stream must have the
+    same length E (one entry budget). Returns (RenderOutput with a leading
+    view axis, aux = {num_dropped (V,)}): each view's images are those of
+    `render_view`, since every tile runs the same program."""
+    v = len(attrs_per_view)
+    _, _, ntx, nty = binning.bin_tile_dims(image_shape, cfg)
+    entries_l, bins_l = [], []
+    for i in range(v):
+        bins = None if bin_results is None else bin_results[i]
+        entries, b, _, _ = _view_entries(
+            attrs_per_view[i], cameras[i], image_shape, cfg, False, bins, entry_budget
+        )
+        entries_l.append(entries)
+        bins_l.append(b)
+    e = entries_l[0].shape[1]
+    if any(x.shape[1] != e for x in entries_l):
+        raise ValueError(f"views of unequal entry budgets {[x.shape[1] for x in entries_l]}: one budget required")
+    if v * e > cp.INT32_MAX:
+        raise ValueError(f"{v} views of {e} entries: the int32 tile_start offsets reach at most {cp.INT32_MAX}")
+    entries = torch.cat(entries_l, dim=1)
+    starts = torch.cat([b.tile_start + i * e for i, b in enumerate(bins_l)])
+    lens = torch.cat([b.tile_len for b in bins_l])
+    out_tiles = cp.composite(entries, starts, lens, ntx, cfg, ntx * nty)
+    img = tiles_to_image_batched(out_tiles[:, : O_TRANS + 1], v, image_shape, cfg)
+    output, _ = _render_output(img, background)
+    return output, {"num_dropped": torch.stack([b.num_dropped for b in bins_l])}
 
 
 # ---------------------------------------------------------------------------

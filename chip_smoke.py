@@ -16,7 +16,15 @@ just before it and read just after:
    version on the card at the main path's shapes (keyframe-5 state), a
    whole `batch_loss` value and its gradients kernel path against plain
    path, checks that two gradient computations are bitwise equal, and
-   times each kernel and its plain version with CUDA events;
+   times each kernel and its plain version with CUDA events. Then the
+   batched path on keyframe 5's drawn batch of 8 views: one forward and
+   one backward launch over the 8 x 512 tiles (`tpv`), each held against
+   its plain version and, view by view, bitwise against that view's own
+   launch, and timed against one launch a view, with the backward
+   launch's tile ordering; and `MapConfig.fused_view_kernel`: one
+   `batch_loss` step whose per-view entry gradients must be bitwise those
+   of the per-view step (1 fwd and 1 bwd launch against V of each), and a
+   keyframe trained each way, its parameters within 1e-5 scaled;
 2. the probe entry points (`python -m activegs_torch.scripts.microbench_vpu`
    and `... microbench_bf16`) at the reference's sizes, then holds every
    probe op bitwise against its plain version at those sizes and rounds on
@@ -28,12 +36,18 @@ just before it and read just after:
    candidates rendered at 128 x 128), recorded by a `MissionRecorder` into
    the git-ignored `build/mission/`; it checks the losses, that exploration
    rises, that the robot moves, that planning launches the forward kernel
-   once per candidate, and holds one plan step's candidate utilities
-   through the kernel against those through the plain forward version.
-   Then it builds the entry streams of that plan step's candidates, holds
-   the forward kernel against its plain version on the candidate with the
-   most reached (entry, pixel) pairs, times it there, and takes the device
-   time of one forward launch per candidate: one plan step's forward work.
+   once per group of candidates (all 100 in one group at these sizes), and
+   holds one plan step's candidate utilities through the kernel against
+   those through the plain forward version, and says whether they are
+   bitwise those of the per-candidate path. Then it builds the entry
+   streams of that plan step's candidates, holds the forward kernel
+   against its plain version on the candidate with the most reached
+   (entry, pixel) pairs and times it there, holds one forward and one
+   backward launch over all candidates' tiles as the keyframe batch is
+   held, and times the plan step's forward work as one launch against one
+   launch a candidate. Last, a torch.profiler breakdown of one plan step,
+   the per-candidate path against the batched one: host time, device busy
+   time and idle share.
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -80,6 +94,7 @@ YAW_DEG = (-40.0, -20.0, 0.0, 20.0, 40.0)  # turning around POS, +x wall first
 SEED = 0
 TIMED_LAUNCHES = 25
 PLAIN_RUNS = 5
+PROFILE_PAD_S = 2.5
 KF_VIEW = f"{RES}x{RES} keyframe-{KEYFRAMES} view"
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
@@ -560,34 +575,73 @@ def kernel_build(comp, name: str, rcfg) -> str:
     return head + f"{n} blocks of {rcfg.tile_pixels} threads per SM (the library's CUDA occupancy query)"
 
 
-def device_times(fn, n: int) -> list[tuple[str, float]]:
-    """Device time per call (ms) of each CUDA kernel (and memset) that `fn`
-    launches, most first: the mean over `n` calls after a warm-up call,
-    from a torch.profiler trace."""
+def device_ops(prof) -> list:
+    """The device operations (kernels, copies, fills) of a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def profiled(fn, n: int) -> list:
+    """The device operations of `n` calls of `fn` after a warm-up call,
+    under torch.profiler (CPU and CUDA), the work padded by PROFILE_PAD_S
+    of idle on each side. On the card's machine a trace shorter than a few
+    seconds may lack some or all of its device operations (the first ones
+    go first), so the window is padded, and a duration is the mean of the
+    recorded operations (`kernel_device_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    times = [(e.key, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()]
-    return sorted(((k, t / n / 1e3) for k, t in times if t > 0), key=lambda kt: -kt[1])
+        time.sleep(PROFILE_PAD_S)
+    return device_ops(prof)
+
+
+def device_times(fn, n: int) -> list[tuple[str, float, int]]:
+    """(name, mean device time of one recorded operation (ms), operations
+    recorded) of each device operation `fn` launches, most time first."""
+    by_name = {}
+    for e in profiled(fn, n):
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, k + 1)
+    return sorted(((name, t / k / 1e3, k) for name, (t, k) in by_name.items()), key=lambda x: -x[1] * x[2])
 
 
 def device_ms_by_kernel(fn, n: int) -> str:
     times = device_times(fn, n)
     if not times:
-        return "not measured (the trace holds no device time)"
-    return ", ".join(f"{k} {t:.4f} ms" for k, t in times)
+        return "not measured (the trace holds no device operation)"
+    return ", ".join(f"{name} {t:.4f} ms x {k} recorded" for name, t, k in times)
+
+
+def kernel_device_ms(fn, n: int, kernel, *parts: str) -> list[tuple[float, int, int]]:
+    """Device time per call of `fn` in each kernel whose profiler name
+    holds one of `parts`, each launched once per launch that `kernel` (a
+    wrapper's counter) counts: the mean of its recorded launches times the
+    launches a call. Returns [(ms, launches recorded, launches made in the
+    profiled calls)] by part; up to 3 traces until one records them all."""
+    for _ in range(3):
+        n0 = kernel.launches
+        ops = profiled(fn, n)
+        per_call = (kernel.launches - n0) / (n + 1)
+        found = [[e for e in ops if part in e.name and not (part == "bwd_kernel" and "tile_order" in e.name)]
+                 for part in parts]
+        if all(found):
+            return [(sum(e.time_range.end - e.time_range.start for e in f) / len(f) / 1e3 * per_call, len(f),
+                     round(per_call * n)) for f in found]
+    fail(f"three torch.profiler traces recorded no launch of one of {parts}")
 
 
 def fwd_device_ms(fn, n: int) -> float:
     """Device time per call of the forward compositor kernel in `fn`."""
-    t = sum(ms for k, ms in device_times(fn, n) if "fwd_kernel" in k)
-    check(t > 0, "the profiler trace holds no device time of the forward kernel")
-    return t
+    from activegs_torch.render import composite as cp
+
+    return kernel_device_ms(fn, n, cp.fwd_kernel, "fwd_kernel")[0][0]
 
 
 def same_bits(a, b) -> bool:
@@ -656,13 +710,15 @@ def mission_phase(dev):
 
     map_cfg, voxel_cfg, raster_cfg = gm.MapConfig(), vm.VoxelConfig(), RasterConfig()
     planner = ConfidencePlanner(PlannerConfig(), map_cfg, voxel_cfg, raster_cfg, seed=SEED)
-    plan_launches = []
+    plan_launches, plan_groups = [], []
     plan = planner.plan
 
     def counted_plan(*args, **kwargs):
         n0 = cp.fwd_kernel.launches
+        planner.last_utility_groups = 0
         path = plan(*args, **kwargs)
         plan_launches.append(cp.fwd_kernel.launches - n0)
+        plan_groups.append(planner.last_utility_groups)
         return path
 
     planner.plan = counted_plan
@@ -673,20 +729,24 @@ def mission_phase(dev):
     mapper.init_map()
     for k in cp.KERNELS:
         k.launches = 0
-    explored, positions, t0 = [], [], time.perf_counter()
+    explored, positions, n_cands, t0 = [], [], [], time.perf_counter()
     for i in range(MISSION_STEPS):
         st = mapper.step()
         explored.append(1.0 - float(mapper.vm_state.unexplored.float().mean()))
         positions.append(tuple(float(v) for v in planner.pose[:3, 3]))
         n_cand = 0 if planner.last_candidates is None or i == 0 else len(planner.last_candidates)
+        n_cands.append(n_cand)
         ph = " ".join(f"{k} {v:.3f}s" for k, v in st["phase_times"].items())
         pl = " ".join(f"{k} {v:.3f}s" for k, v in st["plan_times"].items())
         print(f"mission step {i + 1}: loss {st['loss']:.5f} gaussians {st['n_gaussians']} "
               f"(+{st['n_new']}/-{st['n_pruned']}) | map {ph} | plan {pl or '-'} | explored {explored[-1]:.4f} "
-              f"| planning fwd launches {plan_launches[-1]} for {n_cand} candidates | pose {positions[-1]}")
+              f"| planning fwd launches {plan_launches[-1]} for {n_cand} candidates in {plan_groups[-1]} "
+              f"group(s) | pose {positions[-1]}")
         check(math.isfinite(st["loss"]), f"mission step {i + 1}: loss {st['loss']}")
-        check(plan_launches[-1] == n_cand, f"mission step {i + 1}: {plan_launches[-1]} fwd launches "
-              f"in planning for {n_cand} candidates")
+        # one forward launch per group of candidates (render_views_batched)
+        check(plan_launches[-1] == plan_groups[-1] and (n_cand == 0) == (plan_groups[-1] == 0),
+              f"mission step {i + 1}: {plan_launches[-1]} fwd launches in planning for {n_cand} candidates in "
+              f"{plan_groups[-1]} groups")
     torch.cuda.synchronize()
     launches = {k.source: k.launches for k in cp.KERNELS}
     print(f"mission: {MISSION_STEPS} steps in {time.perf_counter() - t0:.2f} s, launches {launches}, "
@@ -694,39 +754,80 @@ def mission_phase(dev):
     check(explored[-1] > explored[0], f"exploration did not rise: {explored}")
     check(len(set(positions[1:])) > 1, f"the robot did not move: {positions}")
     check(all(n > 0 for n in plan_launches[1:]), f"planning launched no fwd kernel: {plan_launches}")
+    check(all(g < n for g, n in zip(plan_groups[1:], n_cands[1:])), f"planning launched per candidate: {plan_groups}")
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched on the mission path: {launches}")
     return launches, mapper
 
 
 def utility_check(mapper) -> None:
     """One plan step's candidate utilities (the mission's last candidates on
-    its final map), through the kernel and through the plain forward
-    version: explore within 1 voxel over num_voxels, exploit at relative
-    error (max over candidates, to the largest) at most 1e-4."""
+    its final map): the batched path through the kernel (one forward launch
+    per group of candidates) against the same through the plain forward
+    version, explore within 1 voxel over num_voxels, exploit at relative
+    error (max over candidates, to the largest) at most 1e-4; and whether
+    they are bitwise those of the per-candidate path (one launch a
+    candidate)."""
     from activegs_torch.planning import confidence as cf
     from activegs_torch.render import composite as cp
 
-    planner, sim, grid = mapper.planner, mapper.simulator, mapper.grid
     state, cands, (h, w), rcfg, budget, bucket = plan_step_views(mapper)
-    masks, _ = planner._candidate_valid_masks(planner.last_candidates, sim, (h, w))
+    batched, per_candidate = plan_step_utilities(mapper)
+    groups = cf.utility_groups(len(cands), state.capacity, (h, w), rcfg, budget, bucket)
+    n0 = cp.fwd_kernel.launches
+    ek, xk = batched()
+    check(cp.fwd_kernel.launches - n0 == len(groups), "the utility check did not launch the kernel once per group")
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain):
+        ep, xp = batched()
+    e_err = float((ek - ep).abs().max()) * mapper.grid.num_voxels
+    x_err = float((xk - xp).abs().max() / xp.abs().max().clamp(min=1e-12))
+    n0 = cp.fwd_kernel.launches
+    e1, x1 = per_candidate()
+    check(cp.fwd_kernel.launches - n0 == len(cands), "the per-candidate path did not launch once a candidate")
+    same = same_bits((ek, xk), (e1, x1))
+    print(f"utility check: {len(cands)} candidates at {h}x{w} in {len(groups)} group(s) of at most "
+          f"{cf.GROUP_BYTES} bytes of entry streams, {len(groups)} fwd launch(es); kernel against plain: explore "
+          f"max diff {e_err:.3g} voxels, exploit rel err {x_err:.3g} (max exploit {float(xp.max()):.4g}); "
+          f"bitwise equal to the per-candidate path ({len(cands)} launches): {same} (explore max diff "
+          f"{float((ek - e1).abs().max()) * mapper.grid.num_voxels:.3g} voxels, exploit "
+          f"{float((xk - x1).abs().max()):.3g})")
+    check(e_err <= 1.0 and x_err <= 1e-4, "candidate utilities through the kernel disagree with the plain path")
 
-    def utilities():
+
+def plan_step_utilities(mapper):
+    """Two ways to score the mission's last plan step's candidates, each a
+    function returning (explore, exploit) on the card: the batched path
+    (`_confidence_utility_batch`, one `render_views_batched` per group) and
+    the per-candidate path (`candidate_view_stats` one candidate after
+    another, one forward launch each, as the port scored them before)."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.planning import confidence as cf
+    from activegs_torch.render.renderer import pack_attrs
+
+    planner, sim, grid = mapper.planner, mapper.simulator, mapper.grid
+    state, cands, shape, rcfg, budget, bucket = plan_step_views(mapper)
+    masks, _ = planner._candidate_valid_masks(planner.last_candidates, sim, shape)
+    dr = torch.tensor(sim.depth_range, dtype=torch.float32, device=mapper.device)
+    unexplored = mapper.vm_state.unexplored
+
+    def batched():
         return cf._confidence_utility_batch(
-            state, mapper.vm_state.unexplored, cands, sim.intrinsic, masks,
-            torch.tensor(sim.depth_range, dtype=torch.float32, device=mapper.device), grid, (h, w),
-            planner.map_cfg, rcfg, entry_budget=budget, subset_bucket=bucket,
+            state, unexplored, cands, sim.intrinsic, masks, dr, grid, shape, planner.map_cfg, rcfg,
+            entry_budget=budget, subset_bucket=bucket,
         )
 
-    n0 = cp.fwd_kernel.launches
-    ek, xk = utilities()
-    check(cp.fwd_kernel.launches - n0 == len(cands), "the utility check did not launch the kernel per candidate")
-    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain):
-        ep, xp = utilities()
-    e_err = float((ek - ep).abs().max()) * grid.num_voxels
-    x_err = float((xk - xp).abs().max() / xp.abs().max().clamp(min=1e-12))
-    print(f"utility check: {len(cands)} candidates at {h}x{w}, explore max diff {e_err:.3g} voxels, "
-          f"exploit rel err {x_err:.3g} (max exploit {float(xp.max()):.4g})")
-    check(e_err <= 1.0 and x_err <= 1e-4, "candidate utilities through the kernel disagree with the plain path")
+    @torch.no_grad()
+    def per_candidate():
+        attrs = gm.attrs_of(state, planner.map_cfg)
+        packed = pack_attrs(attrs) if bucket is not None else None
+        stats = [
+            cf.candidate_view_stats(attrs, ext, sim.intrinsic, valid, unexplored, dr, grid, shape, rcfg, budget,
+                                    False, bucket, packed)
+            for ext, valid in zip(cands, masks)
+        ]
+        explore, exploit = (torch.stack(x) for x in zip(*stats))
+        return torch.nan_to_num(explore, nan=0.0), torch.nan_to_num(exploit, nan=0.0)
+
+    return batched, per_candidate
 
 
 def plan_step_views(mapper):
@@ -824,6 +925,17 @@ def candidate_phase(mapper, tops: dict):
     print(f"cull (fwd kernel), one plan step ({len(streams)} candidates): {step_live} of {step_rows} (entry, "
           f"32-pixel row) pairs have some alpha > 0 (share {step_live / step_rows:.4f})")
 
+    # the plan step's candidates as one grid: one tpv launch
+    bat = batched_check(f"one plan step's {len(streams)} {shape[0]}x{shape[1]} candidates", streams)
+    grid, tpv = bat["grid"], bat["tpv"]
+    calls = {"single": lambda: [cp.composite_fwd(*a) for a in streams], "tpv": lambda: cp.composite_fwd(*grid, tpv)}
+    events = {k: [] for k in calls}
+    for k in ("single", "tpv", "tpv", "single"):
+        events[k].append(time_ms(calls[k], 5))
+    device = {k: fwd_device_ms(fn, 3) for k, fn in calls.items()}
+    live_g, _ = cp.live_warp_rows(*grid[:3], bat["out"][:, O_STOP, 0], *grid[3:], tpv)
+    grid_bounds = fwd_bounds(grid, bat["out"], tops, live_g)
+
     rec = {
         "candidate_view": view,
         "candidate_ms": time_ms(lambda: cp.composite_fwd(*heavy), TIMED_LAUNCHES),
@@ -831,11 +943,20 @@ def candidate_phase(mapper, tops: dict):
         "candidate_plain_ms": time_ms(lambda: cp.composite_fwd_plain(*heavy), PLAIN_RUNS),
         **{f"candidate_{k}": v for k, v in bounds[h].items()},
         "candidate_live_row_share": live / rows,
-        "plan_step_fwd_ms": fwd_device_ms(lambda: [cp.composite_fwd(*a) for a in streams], 1),
+        "plan_step_fwd_ms": device["single"],
         "plan_step_fwd_plain_ms": time_ms(lambda: [cp.composite_fwd_plain(*a) for a in streams], 1),
         **{f"plan_step_fwd_{k}": sum(b[k] for b in bounds)
            for k in ("bound_ms", "measured_rate_bound_ms", "live_work_bound_ms")},
         "plan_step_live_row_share": step_live / step_rows,
+        "plan_step_tpv_device_ms": device["tpv"],
+        "plan_step_tpv_ms": statistics.median(events["tpv"]),
+        "plan_step_single_events_ms": statistics.median(events["single"]),
+        "plan_step_turns_events_ms": events,
+        "plan_step_tpv_plain_ms": time_ms(lambda: cp.composite_fwd_plain(*grid, tpv), 1),
+        "plan_step_tpv_tiles": len(grid[1]),
+        "plan_step_tpv_entries": grid[0].shape[1],
+        "plan_step_tpv_max_abs_err": max(bat["e_img"], bat["e_dep"]),
+        **{f"plan_step_tpv_{k}": v for k, v in grid_bounds.items()},
     }
     print(f"composite_fwd, {view}: {rec['candidate_ms']:.4f} ms (CUDA events; device time "
           f"{rec['candidate_device_ms']:.4f} ms; plain {rec['candidate_plain_ms']:.3f} ms), bound "
@@ -845,7 +966,346 @@ def candidate_phase(mapper, tops: dict):
           f"{rec['plan_step_fwd_ms']:.4f} ms (plain {rec['plan_step_fwd_plain_ms']:.2f} ms), bound "
           f"{rec['plan_step_fwd_bound_ms']:.4f} ms data sheet, {rec['plan_step_fwd_measured_rate_bound_ms']:.4f} ms "
           f"at the measured rates, live-work bound {rec['plan_step_fwd_live_work_bound_ms']:.4f} ms")
+    print(f"composite_fwd, one plan step as one tpv launch ({rec['plan_step_tpv_tiles']} tiles, "
+          f"{cp.fwd_cluster_size(grid[4]) * len(grid[1])} blocks): kernel device time "
+          f"{rec['plan_step_tpv_device_ms']:.4f} ms against {rec['plan_step_fwd_ms']:.4f} ms for the {len(streams)} "
+          f"single launches (torch.profiler, mean of the recorded launches of 3 calls); CUDA events around the "
+          f"calls (median of 5) {rec['plan_step_tpv_ms']:.4f} ms against "
+          f"{rec['plan_step_single_events_ms']:.4f} ms (in turns: "
+          + ", ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in events.items())
+          + f"); plain {rec['plan_step_tpv_plain_ms']:.2f} ms; bound "
+          f"{rec['plan_step_tpv_bound_ms']:.4f} ms data sheet, {rec['plan_step_tpv_measured_rate_bound_ms']:.4f} ms "
+          f"at the measured rates, live-work bound {rec['plan_step_tpv_live_work_bound_ms']:.4f} ms over the grid")
     return rec, {view: heavy}
+
+
+def concat_streams(streams):
+    """Views' forward-wrapper arguments (entries, tile_start, tile_len, ntx,
+    rcfg) as one grid, concatenated as `render_views_batched` concatenates
+    them. Returns (the grid's arguments, tiles per view, each stream's
+    offset)."""
+    offs = [0]
+    for a in streams:
+        offs.append(offs[-1] + a[0].shape[1])
+    grid = (
+        torch.cat([a[0] for a in streams], dim=1),
+        torch.cat([a[1] + o for a, o in zip(streams, offs)]),
+        torch.cat([a[2] for a in streams]),
+        streams[0][3],
+        streams[0][4],
+    )
+    return grid, len(streams[0][1]), offs
+
+
+def batched_check(view: str, streams) -> dict:
+    """One forward and one backward launch over the views `streams` as one
+    grid (`tpv`), the backward under a seeded random cotangent: each held
+    against its plain version with tpv (images 2e-5, depth 1e-4, the same
+    stop rows; gradients 3e-4 scaled), and each view's slice of the
+    outputs and of the entry gradients bitwise against that view's own
+    single-view launch. Returns what the timing needs."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS
+
+    grid, tpv, offs = concat_streams(streams)
+    ent, ts, tl, ntx, rcfg = grid
+    dev = ent.device
+    n0 = (cp.fwd_kernel.launches, cp.bwd_kernel.launches)
+    out = cp.composite_fwd(*grid, tpv)
+    gout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    gout[:, O_TRANS + 1 :] = 0.0
+    dent = cp.composite_bwd(ent, ts, tl, out, gout, ntx, rcfg, tpv)
+    torch.cuda.synchronize()
+    check((cp.fwd_kernel.launches, cp.bwd_kernel.launches) == (n0[0] + 1, n0[1] + 1),
+          f"batched {view}: not one fwd and one bwd launch")
+    o_p = cp.composite_fwd_plain(*grid, tpv)
+    img_rows = [r for r in range(O_TRANS + 1) if r != O_DEPTH]
+    e_img = float((out[:, img_rows] - o_p[:, img_rows]).abs().max())
+    e_dep = float((out[:, O_DEPTH] - o_p[:, O_DEPTH]).abs().max())
+    stops = torch.equal(out[:, O_STOP], o_p[:, O_STOP])
+    del o_p
+    d_p = cp.composite_bwd_plain(ent, ts, tl, out, gout, ntx, rcfg, tpv)
+    e_bwd, e_bwd_abs = scaled_err(dent, d_p), float((dent - d_p).abs().max())
+    del d_p
+    torch.cuda.empty_cache()
+    fwd_same, bwd_same = True, True
+    for i, a in enumerate(streams):
+        alone = cp.composite_fwd(*a)
+        fwd_same &= same_bits(out[i * tpv : (i + 1) * tpv], alone)
+        d_alone = cp.composite_bwd(*a[:3], alone, gout[i * tpv : (i + 1) * tpv].contiguous(), *a[3:])
+        bwd_same &= same_bits(dent[:, offs[i] : offs[i + 1]], d_alone)
+    v = len(streams)
+    print(f"batched fwd, {view}: one launch over {v} views x {tpv} tiles = {len(ts)} tiles (tpv {tpv}), E "
+          f"{ent.shape[1]} ({' + '.join(str(offs[i + 1] - offs[i]) for i in range(min(v, 3)))}"
+          f"{' + ...' if v > 3 else ''}), {ent.numel() * 4} bytes of entries; against plain with tpv: image err "
+          f"{e_img:.3g} depth err {e_dep:.3g}, stop rows equal {stops}; each view's slice bitwise equal to its own "
+          f"single-view launch: {fwd_same}")
+    print(f"batched bwd, {view}: one launch over {len(ts)} tiles; against plain with tpv: per-entry grads max abs err "
+          f"{e_bwd_abs:.3g} (scaled {e_bwd:.3g}); each view's slice bitwise equal to its own single-view launch: "
+          f"{bwd_same}")
+    check(e_img <= 2e-5 and e_dep <= 1e-4 and stops, f"batched fwd kernel disagrees with its plain version ({view})")
+    check(e_bwd <= 3e-4, f"batched bwd kernel disagrees with its plain version ({view})")
+    check(fwd_same and bwd_same, f"a view's slice of the batched launch differs from its own launch ({view})")
+    return {"grid": grid, "tpv": tpv, "out": out, "gout": gout, "e_img": e_img, "e_dep": e_dep, "e_bwd": e_bwd_abs,
+            "pairs": real_pairs(tl, out[:, O_STOP, 0], rcfg.chunk, rcfg.tile_pixels)}
+
+
+@torch.no_grad()
+def keyframe_batch_streams(state, buf, cfg, rcfg):
+    """The forward wrapper's arguments of each view of keyframe 5's drawn
+    batch of `batch_size` views (repeats kept, as drawn), built as
+    `trainer.batch_loss` builds them from `prepare_views`' frozen bins and
+    subsets. Returns (streams, subset bucket, entry budget)."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.render import binning, renderer
+    from activegs_torch.render import preprocess as pp
+    from activegs_torch.render.types import Camera
+
+    sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
+    ids = kf.sample_weighted(buf, torch.Generator().manual_seed(SEED), cfg.batch_size, cfg.active_size)
+    batch = kf.decode_frames(buf, ids)
+    max_iv, max_e = trainer.keyframe_view_stats(sub, buf, ids, cfg, rcfg)
+    bucket, budget = trainer.pick_subset_bucket(max_iv, sub.capacity), trainer.pick_entry_bucket(max_e)
+    bins, subsets = trainer.prepare_views(sub, batch, cfg, rcfg, bucket, budget)
+    attrs0 = gm.attrs_of(sub, cfg)
+    packed = renderer.pack_attrs(attrs0) if subsets is not None else None
+    _, _, ntx, _ = binning.bin_tile_dims((RES, RES), rcfg)
+    streams = []
+    for i, b in enumerate(bins):
+        view = attrs0 if subsets is None else renderer.subset_view(packed, subsets[i])
+        p2d = pp.preprocess(view, Camera(batch[2][i], batch[3][i]), (RES, RES), rcfg)[0]
+        streams.append((renderer.gather_entries(p2d, b.gid), b.tile_start, b.tile_len, ntx, rcfg))
+    return streams, bucket, budget
+
+
+def keyframe_batched_phase(state, buf, cfg, rcfg) -> dict:
+    """The batched launches on keyframe 5's drawn batch of 512x512 views
+    (`batched_check`), then their device times: the tpv forward and
+    backward launches against one launch a view, in turns, and the
+    backward launch's kernels, the tile ordering among them. Returns the
+    record's keys."""
+    from activegs_torch.render import composite as cp
+
+    streams, bucket, budget = keyframe_batch_streams(state, buf, cfg, rcfg)
+    b = batched_check(f"{RES}x{RES} keyframe-{KEYFRAMES} batch", streams)
+    grid, tpv, out, gout = b["grid"], b["tpv"], b["out"], b["gout"]
+    ent, ts, tl, ntx, _ = grid
+    v = len(streams)
+    sl = [slice(i * tpv, (i + 1) * tpv) for i in range(v)]
+    calls = {
+        "fwd single": lambda: [cp.composite_fwd(*a) for a in streams],
+        "fwd tpv": lambda: cp.composite_fwd(*grid, tpv),
+        "bwd single": lambda: [cp.composite_bwd(*a[:3], out[t], gout[t], *a[3:]) for a, t in zip(streams, sl)],
+        "bwd tpv": lambda: cp.composite_bwd(ent, ts, tl, out, gout, ntx, rcfg, tpv),
+    }
+    events = {k: [] for k in calls}
+    for kern in ("fwd", "bwd"):
+        for side in ("single", "tpv", "tpv", "single"):
+            events[f"{kern} {side}"].append(time_ms(calls[f"{kern} {side}"], 5))
+    device = {k: kernel_device_ms(calls[k], 3, cp.fwd_kernel, "fwd_kernel")[0][0] for k in ("fwd single", "fwd tpv")}
+    device["bwd single"] = kernel_device_ms(calls["bwd single"], 3, cp.bwd_kernel, "bwd_kernel")[0][0]
+    (replay, n_rec, n_made), (order, n_order, _) = kernel_device_ms(
+        calls["bwd tpv"], 5, cp.bwd_kernel, "bwd_kernel", "tile_order_kernel")
+    device["bwd tpv"] = replay
+    rec = {
+        "kf_batch_views": v, "kf_batch_tiles": len(ts), "kf_batch_entries": ent.shape[1],
+        "kf_batch_subset_bucket": bucket, "kf_batch_entry_budget": budget, "kf_batch_pairs": b["pairs"],
+        "kf_batch_device_ms": device,
+        "kf_batch_events_ms": {k: statistics.median(x) for k, x in events.items()},
+        "kf_batch_turns_events_ms": events,
+        "kf_batch_bwd_replay_device_ms": replay, "kf_batch_tile_order_device_ms": order,
+        "kf_batch_tile_order_share": order / replay,
+        "kf_batch_bwd_max_abs_err": b["e_bwd"],
+    }
+    med, ev = rec["kf_batch_device_ms"], rec["kf_batch_events_ms"]
+    print(f"keyframe-{KEYFRAMES} batch, {v} views x {tpv} tiles: CUDA events around the calls (median of 5, in "
+          f"turns single/tpv/tpv/single, 2 each): fwd {ev['fwd tpv']:.4f} ms as one tpv launch against "
+          f"{ev['fwd single']:.4f} ms for {v} single launches, bwd {ev['bwd tpv']:.4f} against {ev['bwd single']:.4f} "
+          f"ms; kernel device time (torch.profiler, mean of the recorded launches): fwd {med['fwd tpv']:.4f} against "
+          f"{med['fwd single']:.4f} ms, bwd replay {med['bwd tpv']:.4f} against {med['bwd single']:.4f} ms; "
+          f"tile_order_kernel {order:.4f} ms ({n_order} of {n_made} launches recorded) = {order / replay:.2%} of "
+          f"the replay kernel's {replay:.4f} ms ({n_rec} of {n_made} recorded)")
+    return rec
+
+
+def fused_check(state, buf, cfg, rcfg) -> dict:
+    """`MapConfig.fused_view_kernel` on keyframe 5's drawn batch of distinct
+    views, from the keyframe-5 state: one `batch_loss` step fused and per
+    view, whose per-view entry gradients (the bwd kernel's output, sliced
+    per view) must be bitwise equal, with 1 fwd and 1 bwd launch against V
+    of each; then one keyframe trained each way from the same state and
+    batch, whose parameters must agree within 1e-5 scaled by the largest
+    (bitwise equality is printed: autograd may add the views' gradients
+    into the shared map rows in another order)."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.render import composite as cp
+
+    sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
+    ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(SEED))
+    batch = kf.decode_frames(buf, ids)
+    max_iv, max_e = trainer.keyframe_view_stats(sub, buf, ids, cfg, rcfg)
+    bucket, budget = trainer.pick_subset_bucket(max_iv, sub.capacity), trainer.pick_entry_bucket(max_e)
+    how = "as the mapping step picks it"
+    if bucket is None:  # the option is honored only on compacted subsets
+        bucket, how = trainer._half_step_bucket(max_iv, 8192), "forced: the mapping step would not compact here"
+    bins, subsets = trainer.prepare_views(sub, batch, cfg, rcfg, bucket, budget)
+    fused = dataclasses.replace(cfg, fused_view_kernel=True)
+    v = len(ids)
+
+    def step(c):
+        calls, bwd = [], cp.composite_bwd
+
+        def recorded(*args, **kwargs):
+            d = bwd(*args, **kwargs)
+            calls.append((args[1].data_ptr(), d))
+            return d
+
+        params = {k: getattr(sub, k).detach().clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}
+        n0 = (cp.fwd_kernel.launches, cp.bwd_kernel.launches)
+        with mock.patch.object(cp, "composite_bwd", recorded):
+            loss, _ = trainer.batch_loss(params, sub, batch, counts, c, rcfg, bins, subsets)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return loss.detach(), grads, calls, (cp.fwd_kernel.launches - n0[0], cp.bwd_kernel.launches - n0[1])
+
+    l_f, g_f, calls_f, n_f = step(fused)
+    l_v, g_v, calls_v, n_v = step(cfg)
+    e = bins[0].gid.shape[0]
+    by_view = dict(calls_v)  # a view's backward call, by its tile_start tensor
+    same_entries = len(calls_f) == 1 and all(
+        same_bits(calls_f[0][1][:, i * e : (i + 1) * e], by_view[b.tile_start.data_ptr()]) for i, b in enumerate(bins)
+    )
+    same_grads = all(torch.equal(a, b) for a, b in zip(g_f, g_v))
+    g_err = max(scaled_err(a, b) for a, b in zip(g_f, g_v))
+    print(f"fused_view_kernel step, keyframe-5 batch of {v} distinct views (subset bucket {bucket}, {how}; entry "
+          f"budget {budget}, E {e}): launches fwd/bwd fused {n_f[0]}/{n_f[1]} against per view {n_v[0]}/{n_v[1]}; "
+          f"per-view entry gradients bitwise equal: {same_entries}; loss {float(l_f):.7f} / {float(l_v):.7f}; "
+          f"parameter grads bitwise equal: {same_grads} (max scaled err {g_err:.3g})")
+    check(n_f == (1, 1) and n_v == (v, v), f"fused step launches {n_f}, per-view {n_v}, for {v} views")
+    check(same_entries, "the fused step's per-view entry gradients differ from the per-view step's")
+
+    def clone(b):
+        return dataclasses.replace(b, **{f.name: getattr(b, f.name).clone() for f in dataclasses.fields(b)
+                                         if isinstance(getattr(b, f.name), torch.Tensor)})
+
+    res, times = {}, {}
+    for name, c in (("fused", fused), ("per-view", cfg)):
+        n0 = (cp.fwd_kernel.launches, cp.bwd_kernel.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = trainer.train_keyframe(sub, clone(buf), (ids, counts), c, rcfg, subset_bucket=bucket,
+                                           entry_budget=budget)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0, cp.fwd_kernel.launches - n0[0], cp.bwd_kernel.launches - n0[1])
+    s_f, s_v = res["fused"][0], res["per-view"][0]
+    errs = {k: scaled_err(getattr(s_f, k), getattr(s_v, k)) for k in trainer.PARAM_FIELDS}
+    bitwise = all(torch.equal(getattr(s_f, k), getattr(s_v, k)) for k in trainer.PARAM_FIELDS)
+    print(f"fused_view_kernel keyframe ({cfg.optimization_steps} steps): parameters against the per-view keyframe, "
+          f"max scaled err " + " ".join(f"{k} {x:.3g}" for k, x in errs.items()) + f"; bitwise equal: {bitwise}; "
+          f"loss {float(res['fused'][2]):.7f} / {float(res['per-view'][2]):.7f}; host time (one run each, after "
+          f"warm-up) fused {times['fused'][0]:.3f} s, per view {times['per-view'][0]:.3f} s; launches fwd/bwd fused "
+          f"{times['fused'][1]}/{times['fused'][2]}, per view {times['per-view'][1]}/{times['per-view'][2]}")
+    check(max(errs.values()) <= 1e-5, "the fused keyframe's parameters disagree with the per-view keyframe's")
+    return {"views": v, "bitwise_entry_grads": same_entries, "keyframe_bitwise": bitwise,
+            "keyframe_max_scaled_err": max(errs.values())}
+
+
+def device_busy(fn) -> dict:
+    """One call of `fn` under torch.profiler (after a warm-up call, padded
+    as in `profiled`): the device's busy time (the union of the recorded
+    kernels', copies' and fills' intervals), the device operations
+    recorded against those the host launched (its runtime calls that
+    launch a kernel, copy or fill), and the 4 device operations with the
+    most time. Up to 3 traces, until one records every launched
+    operation; else the most complete (its busy time is then a lower
+    bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        dev = device_ops(prof)
+        launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+                       and re.search(r"LaunchKernel|Memcpy|Memset", e.name))
+        busy, end = 0.0, -math.inf
+        for s0, s1 in sorted((e.time_range.start, e.time_range.end) for e in dev):
+            if s1 > end:
+                busy += s1 - max(s0, end)
+                end = s1
+        by_name = {}
+        for e in dev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        rec = {"busy_ms": busy / 1e3, "device_ops": len(dev), "launched": launched,
+               "top": [(k[:60], t / 1e3) for k, t in top]}
+        if best is None or rec["device_ops"] > best["device_ops"]:
+            best = rec
+        if len(dev) >= launched:
+            break
+    return best
+
+
+def plan_step_profile(mapper) -> dict:
+    """One plan step's candidate utilities on the mission's final map, the
+    per-candidate path against the batched one (the same candidates,
+    budget and bucket): host time in turns (per-candidate, batched,
+    batched, per-candidate, each after a sync; 2 rounds), then each
+    one's device busy time under torch.profiler (`device_busy`), and the
+    idle share = 1 - busy / the median host time; the same for the
+    candidate entry stats, which both paths run first."""
+    from activegs_torch.planning import confidence as cf
+
+    planner, sim = mapper.planner, mapper.simulator
+    batched, per_candidate = plan_step_utilities(mapper)
+    state, cands, shape, rcfg, _, _ = plan_step_views(mapper)
+    paths = {"per-candidate": per_candidate, "batched": batched}
+    for fn in paths.values():
+        fn()  # warm-up
+    walls = {k: [] for k in paths}
+    for _ in range(2):
+        for k in ("per-candidate", "batched", "batched", "per-candidate"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths[k]()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    prof = {k: device_busy(fn) for k, fn in paths.items()}
+    entry_stats = lambda: cf._candidate_entry_stats(state, cands, sim.intrinsic, shape, planner.map_cfg, rcfg)  # noqa: E731
+    entry_stats()  # warm-up
+    hosts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry_stats()
+        torch.cuda.synchronize()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+    stats = {"host_ms": statistics.median(hosts), **device_busy(entry_stats)}
+    rec = {}
+    for k in paths:
+        p, host = prof[k], statistics.median(walls[k])
+        rec[k] = {"host_ms_median": host, "host_ms": walls[k], "idle_share": 1.0 - p["busy_ms"] / host, **p}
+        print(f"plan step profile, {k} path ({len(cands)} candidates): host {host:.1f} ms (median of "
+              f"{len(walls[k])}, unprofiled: " + " ".join(f"{t:.1f}" for t in walls[k]) + f"); device busy "
+              f"{p['busy_ms']:.2f} ms (torch.profiler, {p['device_ops']} of {p['launched']} launched device "
+              f"operations recorded), idle share {rec[k]['idle_share']:.4f}; most device time: "
+              + ", ".join(f"{n} {t:.2f} ms" for n, t in p["top"]))
+    stats["idle_share"] = 1.0 - stats["busy_ms"] / stats["host_ms"]
+    rec["entry_stats"] = stats
+    print(f"plan step profile, candidate entry stats (run first by both paths): host {stats['host_ms']:.1f} ms, "
+          f"device busy {stats['busy_ms']:.2f} ms ({stats['device_ops']} of {stats['launched']} recorded), idle "
+          f"share {stats['idle_share']:.4f}")
+    return rec
 
 
 def main() -> None:
@@ -878,12 +1338,22 @@ def main() -> None:
     fwd_build = kernel_build(cp, "composite_fwd", rcfg)
     print(f"composite_fwd build: {fwd_build}")
     errs, inputs, (live, rows), views = compare(state, buf, cfg, rcfg)
+    kf_batch = keyframe_batched_phase(state, buf, cfg, rcfg)
+    fused = fused_check(state, buf, cfg, rcfg)
     del state, buf
+    torch.cuda.empty_cache()
     probes, tops = probe_phase(dev)
     mission_launches, mapper = mission_phase(dev)
     utility_check(mapper)
     candidate, cand_view = candidate_phase(mapper, tops)
     views["composite_fwd"].update(cand_view)
+    profile = plan_step_profile(mapper)
+    pairs = kf_batch["kf_batch_pairs"]
+    kf_batch.update(kf_batch_bwd_bound_ms=pairs * OPS_PER_PAIR["composite_bwd"] / PEAK_FP32_FLOPS * 1e3,
+                    kf_batch_bwd_measured_rate_bound_ms=measured_rate_bound_ms("composite_bwd", pairs, tops))
+    print(f"composite_bwd, keyframe-{KEYFRAMES} batch as one tpv launch: bound {kf_batch['kf_batch_bwd_bound_ms']:.4f} "
+          f"ms data sheet, {kf_batch['kf_batch_bwd_measured_rate_bound_ms']:.4f} ms at the probe's measured rates "
+          f"({pairs} pairs)")
 
     kernels = []
     for name, (kfn, pfn, pairs, nbytes) in inputs.items():
@@ -896,7 +1366,10 @@ def main() -> None:
         extra = {"live_row_share": live / rows} if name in ("composite_fwd", "composite_bwd") else {}
         if name == "composite_fwd":
             extra.update(live_work_bound_ms=live_work_bound_ms(pairs, 32 * live, tops),
-                         cluster_blocks=cp.fwd_cluster_size(rcfg), build=fwd_build, **candidate)
+                         cluster_blocks=cp.fwd_cluster_size(rcfg), build=fwd_build, **candidate,
+                         plan_step_profile=profile)
+        if name == "composite_bwd":
+            extra.update(**kf_batch, fused_view_kernel=fused)
         kernels.append({
             "name": name,
             "route": "cuda",

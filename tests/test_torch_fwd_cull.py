@@ -17,7 +17,9 @@ K = 8:
 - skipping every pair with alpha == 0 changes no bit of the output;
 - splitting the stop over C = 2 and 4 row groups gives the bits of C = 1;
 - the emulation agrees with `composite.composite_fwd_plain` at the
-  reference's tolerances, with the same chunks done.
+  reference's tolerances, with the same chunks done;
+- on a grid of several views (`tpv`, tiles per view), each view gets the
+  bits it gets alone.
 """
 
 import pytest
@@ -40,12 +42,13 @@ CASES = {
 }
 
 
-def emulate(entries, tile_start, tile_len, ntx: int, cfg, cull: bool, nsplit: int):
-    """The forward kernel's algorithm, pixel by pixel. Returns the output
-    (T, OUT_ROWS, P) and the number of (tile, chunk) stop tests at which the
-    `nsplit` row groups disagreed (some above term_eps, some not)."""
+def emulate(entries, tile_start, tile_len, ntx: int, cfg, cull: bool, nsplit: int, tpv=None):
+    """The forward kernel's algorithm, pixel by pixel, on a grid of views of
+    `tpv` tiles each (None: one view). Returns the output (T, OUT_ROWS, P)
+    and the number of (tile, chunk) stop tests at which the `nsplit` row
+    groups disagreed (some above term_eps, some not)."""
     t_n, k, p = tile_start.shape[0], cfg.chunk, cfg.tile_pixels
-    px, py = cp.tile_pixel_coords(t_n, ntx, cfg, entries.device)
+    px, py = cp.tile_pixel_coords(t_n, ntx, cfg, entries.device, tpv)
     nch = (tile_len.to(torch.int64) + k - 1) // k
     trans = torch.ones((t_n, p))
     acc = torch.zeros((t_n, 8, p))  # r g b nx ny nz conf depth
@@ -132,6 +135,40 @@ def test_emulation_matches_plain(case, cfg_id):
     torch.testing.assert_close(out[:, rows], want[:, rows], rtol=0, atol=2e-5)
     torch.testing.assert_close(out[:, tt.O_DEPTH], want[:, tt.O_DEPTH], rtol=0, atol=1e-4)
     assert torch.equal(out[:, tt.O_STOP :], want[:, tt.O_STOP :])
+
+
+@pytest.mark.parametrize("cfg_id", list(CFGS))
+def test_tpv_grid_renders_each_view_as_alone(cfg_id):
+    """A grid of the four scenes' views, their entry streams and tile
+    tables concatenated (tile t is tile t % tpv of its view): the emulated
+    kernel, with its cull and its cluster stop, gives each view the bits of
+    that view rendered alone, and agrees with the plain version's tpv
+    grid."""
+    cfg = CFGS[cfg_id]
+    views = [case_entries(case, cfg_id)[0] for case in CASES]
+    _, ntx, _ = case_entries("random", cfg_id)
+    tpv = len(views[0][1])
+    offs = [0]
+    for ent, _, _ in views:
+        offs.append(offs[-1] + ent.shape[1])
+    grid = (
+        torch.cat([v[0] for v in views], dim=1),
+        torch.cat([v[1] + o for v, o in zip(views, offs)]),
+        torch.cat([v[2] for v in views]),
+    )
+    nsplit = cp.fwd_cluster_size(cfg)
+    out, _ = emulate(*grid, ntx, cfg, cull=True, nsplit=nsplit, tpv=tpv)
+    for i, args in enumerate(views):
+        alone, _ = emulate(*args, ntx, cfg, cull=True, nsplit=nsplit)
+        assert same_bits(out[i * tpv : (i + 1) * tpv], alone), i
+    want = cp.composite_fwd_plain(*grid, ntx, cfg, tpv=tpv)
+    rows = [r for r in range(tt.O_TRANS + 1) if r != tt.O_DEPTH]
+    torch.testing.assert_close(out[:, rows], want[:, rows], rtol=0, atol=2e-5)
+    torch.testing.assert_close(out[:, tt.O_DEPTH], want[:, tt.O_DEPTH], rtol=0, atol=1e-4)
+    assert torch.equal(out[:, tt.O_STOP :], want[:, tt.O_STOP :])
+    # without tpv, every view after the first is shaded at other pixels
+    wrong, _ = emulate(*grid, ntx, cfg, cull=True, nsplit=nsplit)
+    assert not same_bits(wrong[tpv:], out[tpv:])
 
 
 @pytest.mark.parametrize(

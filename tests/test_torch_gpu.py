@@ -226,8 +226,19 @@ def test_bwd_tile_order_puts_the_most_reached_entries_first(cuda):
     """The backward launch's ordering kernel, on more tiles than one of its
     blocks holds: `order` lists every tile once, by the real entries its
     replay reaches, min(tile_len, stop * K), most first, ties by index."""
+    check_tile_order(cuda, 700, 28, 700)
+
+
+@pytest.mark.cuda
+def test_bwd_tile_order_over_a_batched_grid(cuda):
+    """The same over 4096 tiles, 8 views of a 512x512 grid (tpv = 512): the
+    tiles of a fused 8-view training step at full size."""
+    check_tile_order(cuda, 8 * 512, 16, 512)
+
+
+def check_tile_order(cuda, t_n, ntx, tpv):
     cfg = CFGS["k128"]
-    k, t_n, ntx = cfg.chunk, 700, 28
+    k = cfg.chunk
     gen = torch.Generator().manual_seed(3)
     tile_len = torch.randint(0, 5 * k, (t_n,), generator=gen, dtype=torch.int32)
     tile_len[::7] = 2 * k  # ties
@@ -244,7 +255,7 @@ def test_bwd_tile_order_puts_the_most_reached_entries_first(cuda):
     ts, tl = tile_start.to(cuda, torch.int32), tile_len.to(cuda)
     cp.bwd_kernel.launch(
         entries.data_ptr(), e, ts.data_ptr(), tl.data_ptr(), out.data_ptr(), gout.data_ptr(),
-        dentries.data_ptr(), order.data_ptr(), t_n, *cp._tail(ntx, cfg, cuda),
+        dentries.data_ptr(), order.data_ptr(), t_n, tpv, *cp._tail(ntx, cfg, cuda),
     )
     torch.cuda.synchronize()
     expect = torch.sort(-torch.minimum(tile_len.long(), stop * k), stable=True).indices
@@ -269,8 +280,85 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     out = torch.empty((2, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
     for bad in (3, 5, 0):
         with pytest.raises(RuntimeError, match="invalid argument"):
-            cp.fwd_kernel.launch(ent.data_ptr(), 256, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 2, bad,
+            cp.fwd_kernel.launch(ent.data_ptr(), 256, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 2, 2, bad,
                                  *cp._tail(1, cfg, cuda))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_tpv_that_does_not_divide_the_grid(cuda):
+    """Tiles per view must divide the grid's tiles: the wrappers raise
+    ValueError, the launch functions return cudaErrorInvalidValue."""
+    cfg = CFGS["k128"]
+    ent = torch.zeros((tt.PARAM_DIM, 768), device=cuda)
+    ts = torch.zeros(6, dtype=torch.int32, device=cuda)
+    out = torch.zeros((6, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
+    for bad in (4, 0, 12):
+        with pytest.raises(ValueError, match="does not divide"):
+            cp.composite_fwd(ent, ts, ts, 1, cfg, bad)
+        with pytest.raises(ValueError, match="does not divide"):
+            cp.composite_bwd(ent, ts, ts, out, out, 1, cfg, bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cp.fwd_kernel.launch(ent.data_ptr(), 768, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 6, bad, 4,
+                                 *cp._tail(1, cfg, cuda))
+        order = torch.empty(6, dtype=torch.int32, device=cuda)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cp.bwd_kernel.launch(ent.data_ptr(), 768, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), out.data_ptr(),
+                                 ent.data_ptr(), order.data_ptr(), 6, bad, *cp._tail(1, cfg, cuda))
+    for tpv in (1, 2, 3, 6):  # each divides the grid
+        cp.composite_fwd(ent, ts, ts, 1, cfg, tpv)
+    torch.cuda.synchronize()
+
+
+def view_grid(cuda, cfg):
+    """Three 64x64 views of unequal tiles (the scene of the kernel tests,
+    the small-surfel scene, the wall-edge scene) as one grid: their entry
+    streams and tile tables concatenated. Returns ((entries, tile_start,
+    tile_len) of the grid, ntx, tiles per view, [each view's arguments],
+    [each stream's offset])."""
+    views = []
+    for make in (scene, small_surfel_scene, wall_edge_scene):
+        args, ntx = scene_entries(make(cuda), cfg, cuda)
+        views.append(args)
+    offs = [0]
+    for ent, _, _ in views:
+        offs.append(offs[-1] + ent.shape[1])
+    grid = (
+        torch.cat([v[0] for v in views], dim=1).contiguous(),
+        torch.cat([v[1] + o for v, o in zip(views, offs)]),
+        torch.cat([v[2] for v in views]),
+    )
+    return grid, ntx, len(views[0][1]), views, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_id", list(CFGS))
+def test_tpv_kernels_match_plain_and_each_view_alone(cuda, cfg_id):
+    """One forward and one backward launch over a grid of three views
+    (`tpv`), at K = 128 (the backward kernel's compiled K) and K = 8 (its
+    run-time K): against their plain versions with tpv at the kernels'
+    tolerances, and each view's slice of the outputs and of the entry
+    gradients bitwise equal to that view's own single-view launch."""
+    cfg = CFGS[cfg_id]
+    grid, ntx, tpv, views, offs = view_grid(cuda, cfg)
+    n0 = (cp.fwd_kernel.launches, cp.bwd_kernel.launches)
+    o_k = cp.composite_fwd(*grid, ntx, cfg, tpv)
+    g = torch.randn(o_k.shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    g[:, tt.O_TRANS + 1 :] = 0.0
+    d_k = cp.composite_bwd(*grid, o_k, g, ntx, cfg, tpv)
+    torch.cuda.synchronize()
+    assert (cp.fwd_kernel.launches, cp.bwd_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+    o_p = cp.composite_fwd_plain(*grid, ntx, cfg, tpv)
+    rows = [r for r in range(tt.O_TRANS + 1) if r != tt.O_DEPTH]
+    torch.testing.assert_close(o_k[:, rows], o_p[:, rows], rtol=0, atol=2e-5)
+    torch.testing.assert_close(o_k[:, tt.O_DEPTH], o_p[:, tt.O_DEPTH], rtol=0, atol=1e-4)
+    assert torch.equal(o_k[:, tt.O_STOP :], o_p[:, tt.O_STOP :])
+    assert_bwd_rows_close(d_k, cp.composite_bwd_plain(*grid, o_k, g, ntx, cfg, tpv))
+    for i, args in enumerate(views):
+        t = slice(i * tpv, (i + 1) * tpv)
+        alone = cp.composite_fwd(*args, ntx, cfg)
+        assert torch.equal(o_k[t].view(torch.int32), alone.view(torch.int32)), i
+        d_alone = cp.composite_bwd(*args, alone, g[t].contiguous(), ntx, cfg)
+        assert torch.equal(d_k[:, offs[i] : offs[i + 1]].view(torch.int32), d_alone.view(torch.int32)), i
 
 
 @pytest.mark.cuda
