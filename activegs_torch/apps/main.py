@@ -1,0 +1,55 @@
+"""Mission entry point (port of `activegs_tpu/apps/main.py`).
+
+    python -m activegs_torch.apps.main planner=confidence scene=synthetic/boxroom \
+        experiment.budget=300 max_steps=10 mapper.raster.bf16_pairs=true
+
+Runs on the GPU; `device=cpu` runs the mission on the CPU, with the
+compositor's plain PyTorch versions. Results go to
+`<experiment.output_dir>/<exp_id>/<scene_name>/<planner_name>/<run_id>/`.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from ..io.recorder import MissionRecorder
+from .common import build_mission, dump_config, experiment_path, mission_device, parse_cli
+
+
+def main(argv: list[str] | None = None):
+    """Fly the mission that the `key=value` arguments (default: the command
+    line) configure. Returns the mapper after its last step."""
+    cfg = parse_cli("main", argv)
+    for key in ("use_gui", "dump_views"):
+        if cfg.get(key, False):
+            raise NotImplementedError(f"{key}=true: the viewers (viz/) are not ported yet (ROADMAP.md, queue 1 item 9)")
+    device = mission_device(cfg)
+
+    prewarm_steps = int(cfg.experiment.get("prewarm_steps", 0))
+    if prewarm_steps > 0:
+        # a throwaway unrecorded mission first, so that kernel builds and
+        # first-use costs never bill against the recorded budget
+        print(f" prewarm: {prewarm_steps} unrecorded steps...")
+        wmapper, _, _, _ = build_mission(cfg, device)
+        wmapper.run(max_steps=prewarm_steps)
+        del wmapper
+
+    mapper, _, _, _ = build_mission(cfg, device)
+    if not cfg.get("debug", False):
+        path = experiment_path(cfg)
+        dump_config(cfg, path)
+        mapper.load_recorder(
+            MissionRecorder(
+                path,
+                budget=cfg.experiment.budget,
+                record_interval=cfg.experiment.record_interval,
+                record_rgbd=cfg.experiment.get("record_rgbd", False),
+                record_global_path=cfg.experiment.get("record_global_path", True),
+            )
+        )
+    mapper.run(max_steps=cfg.get("max_steps", None))
+    return mapper
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -116,12 +116,15 @@ def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One kernel `<csrc>/<source>.cu`, built and bound through ctypes at
-    first launch. `launches` counts the launches made through `launch`, and
-    nothing else."""
+    """One kernel of `<csrc>/<source>.cu`, launched through its exported
+    `<name>_launch` (`name` defaults to the source's; a source may export
+    several instances), built and bound through ctypes at first launch.
+    `launches` counts the launches made through `launch`, and nothing
+    else."""
 
-    def __init__(self, source: str, argtypes: list, csrc: Path = CSRC):
+    def __init__(self, source: str, argtypes: list, csrc: Path = CSRC, name: str | None = None):
         self.source = source
+        self.name = name or source
         self.csrc = Path(csrc)
         self.argtypes = argtypes
         self.launches = 0
@@ -135,7 +138,7 @@ class CudaKernel:
     def launch(self, *args) -> None:
         if self._fn is None:
             lib = load(self.source, self.csrc)
-            fn = getattr(lib, f"{self.source}_launch")
+            fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             err = getattr(lib, f"{self.source}_errstr")
@@ -145,6 +148,6 @@ class CudaKernel:
         code = self._fn(*args)
         if code != 0:
             raise RuntimeError(
-                f"{self.source}: CUDA error {code} ({self._errstr(code).decode()})"
+                f"{self.name}: CUDA error {code} ({self._errstr(code).decode()})"
             )
         self.launches += 1

@@ -22,6 +22,40 @@ in the reference.
 
 Each wrapper takes the plain version only for a CPU tensor. For a CUDA
 tensor it launches its kernel (counted in `<kernel>.launches`) or raises.
+Under `RasterConfig.bf16_pairs` it launches the kernel's bf16 instance
+(`<kernel>_bf16`, exported by the same source).
+
+Rounding contract of bf16 pair math (`cfg.bf16_pairs`), kept by the plain
+versions and the kernels alike. It keeps every rounding point at which the
+reference (`activegs_tpu/render/composite_pallas.py`) chooses bfloat16:
+  alpha     dx, dy formed in float32, then they and the conic and opacity
+            columns rounded to bf16; every product and sum of the power,
+            exp (float32 exp of the bf16 power, rounded once), op * exp
+            and the clamp at alpha_max (0.98828125 in bf16) rounded to
+            bf16; the alpha_cut test on a float32 upcast;
+  1 - alpha rounded to bf16;
+  excl      the exclusive product of the chunk's 1 - alpha, run in float32
+            in entry order and rounded to bf16 where used; the chunk's
+            total product likewise rounded to bf16, then used in float32;
+  fwd       w = bf16(bf16(alpha * excl) * bf16(T)); the 7 features rounded
+            to bf16; the feature sums accumulate w * f in float32 (exact
+            products), depth w * t in float32; T across chunks float32;
+  bwd       the 7 feature cotangents and g_T * T_final rounded to bf16;
+            t_k = bf16(bf16(T_before) * excl), w = bf16(alpha * t_k);
+            q in float32 (bf16 features times bf16 cotangents plus t *
+            g_depth), q_d = bf16(q); wq = bf16(w * q_d), summed in float32
+            (the suffix over later entries is formed in float32 as total -
+            inclusive sum, then rounded to bf16, and added to bf16(S) in
+            bf16); dalpha, dpow = dalpha * alpha, dpow * dx, dpow * dy, the
+            moment products and dalpha * exp all bf16, each reduced over
+            the pixels in float32; the feature gradients sum w * g in
+            float32; the depth-plane chain (w * g_depth onwards) float32;
+  stats     w = float32(bf16(alpha * excl)) * T, then float32.
+The reference forms excl by a Hillis-Steele doubling scan in bf16, a
+grouping chosen for the TPU: its 7 levels round 7 times. A running product
+rounded after every step would round up to K = 128 times (up to 128 x 2^-8
+relative); the float32 running product rounded once at each use (within
+2^-8) stays within the scan's envelope (`tests/test_torch_bf16.py`).
 """
 
 from __future__ import annotations
@@ -41,15 +75,23 @@ INT32_MAX = 2**31 - 1  # tile_start is int32, as in the reference
 _TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
 # the forward and backward kernels take the tiles per view after the tile
 # count, the forward kernel then the cluster size
-fwd_kernel = CudaKernel("composite_fwd", [_P, _LL, _P, _P, _P, _I, _I, _I] + _TAIL)
-bwd_kernel = CudaKernel("composite_bwd", [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I] + _TAIL)
-stats_kernel = CudaKernel("composite_stats", [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL)
+_FWD_ARGS = [_P, _LL, _P, _P, _P, _I, _I, _I] + _TAIL
+_BWD_ARGS = [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I] + _TAIL
+_STATS_ARGS = [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL
+fwd_kernel = CudaKernel("composite_fwd", _FWD_ARGS)
+bwd_kernel = CudaKernel("composite_bwd", _BWD_ARGS)
+stats_kernel = CudaKernel("composite_stats", _STATS_ARGS)
 KERNELS = (fwd_kernel, bwd_kernel, stats_kernel)
+# the bf16 pair-math instances (cfg.bf16_pairs), exported by the same sources
+fwd_bf16_kernel = CudaKernel("composite_fwd", _FWD_ARGS, name="composite_fwd_bf16")
+bwd_bf16_kernel = CudaKernel("composite_bwd", _BWD_ARGS, name="composite_bwd_bf16")
+stats_bf16_kernel = CudaKernel("composite_stats", _STATS_ARGS, name="composite_stats_bf16")
+BF16_KERNELS = (fwd_bf16_kernel, bwd_bf16_kernel, stats_bf16_kernel)
 
 
 def _tail(ntx: int, cfg: RasterConfig, device) -> list:
     return [
-        ntx, cfg.tile_w, cfg.tile_h, cfg.chunk, cfg.alpha_cut, cfg.alpha_max,
+        ntx, cfg.tile_w, cfg.tile_h, cfg.chunk, cfg.alpha_cut, pp.effective_alpha_max(cfg),
         cfg.term_eps, cfg.depth_lo, cfg.depth_hi,
         torch.cuda.current_stream(device).cuda_stream,
     ]
@@ -131,11 +173,30 @@ def _feats(e):
     return torch.cat([e[..., 6:12], e[..., 16:17]], dim=-1)
 
 
+def _running_product(x):
+    """Inclusive product along dim 1, one float32 multiply per entry in
+    entry order, as the kernels form it (`torch.cumprod` of float32 on the
+    CPU accumulates in float64)."""
+    out = torch.empty_like(x)
+    run = torch.ones_like(x[:, 0])
+    for j in range(x.shape[1]):
+        run = run * x[:, j]
+        out[:, j] = run
+    return out
+
+
 def _excl_total(alpha):
+    """1 - alpha, the exclusive product of the chunk's 1 - alpha in entry
+    order, and the chunk's total product (float32). Under bf16 pair math
+    the product runs in float32 and excl and the total are rounded to bf16
+    once (the rounding contract)."""
     one_m = 1.0 - alpha
-    cum = torch.cumprod(one_m, dim=1)
-    excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
-    return one_m, excl, cum[:, -1:]
+    if alpha.dtype == torch.float32:
+        cum = torch.cumprod(one_m, dim=1)
+    else:
+        cum = _running_product(one_m.float())
+    excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1).to(alpha.dtype)
+    return one_m, excl, cum[:, -1:].to(alpha.dtype).float()
 
 
 def _live_tiles(c: int, nch, trans, cfg: RasterConfig):
@@ -158,8 +219,8 @@ def composite_fwd_plain(entries, tile_start, tile_len, ntx: int, cfg: RasterConf
         e, _ = _chunk(entries, tile_start, tile_len, act, c, k)
         alpha, tdep = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
         _, excl, total = _excl_total(alpha)
-        wgt = alpha * excl * trans[act]
-        ch = torch.bmm(_feats(e).transpose(1, 2), wgt)  # (A, 7, P)
+        wgt = (alpha * excl * trans[act].to(alpha.dtype)).float()
+        ch = torch.bmm(_feats(e).to(alpha.dtype).float().transpose(1, 2), wgt)  # (A, 7, P)
         dsum = torch.sum(wgt * tdep, dim=1, keepdim=True)
         acc[act] = acc[act] + torch.cat([ch, dsum], dim=1)
         trans[act] = trans[act] * total
@@ -175,11 +236,13 @@ def composite_bwd_plain(
     t_n, k = tile_start.shape[0], cfg.chunk
     dev = entries.device
     px, py = tile_pixel_coords(t_n, ntx, cfg, dev, tpv)
+    dt = pp.pair_dtype(cfg)
     stop = out_fwd[:, O_STOP, 0].to(torch.int64)
-    g_feat = torch.cat([gout[:, 0:6], gout[:, O_CONF : O_CONF + 1]], dim=1)  # (T, 7, P)
+    # (T, 7, P) in the pair dtype's values
+    g_feat = torch.cat([gout[:, 0:6], gout[:, O_CONF : O_CONF + 1]], dim=1).to(dt).float()
     g_depth = gout[:, O_DEPTH : O_DEPTH + 1]
     t_final = out_fwd[:, O_TRANS : O_TRANS + 1]
-    gtf = gout[:, O_TRANS : O_TRANS + 1] * t_final
+    gtf = (gout[:, O_TRANS : O_TRANS + 1] * t_final).to(dt)
     t_after = t_final.clone()
     s_q = torch.zeros_like(t_final)
     dentries = torch.zeros_like(entries)
@@ -193,22 +256,25 @@ def composite_bwd_plain(
         alpha = terms["alpha"]
         one_m, excl, total = _excl_total(alpha)
         t_before = t_after[act] / torch.clamp(total, min=1e-30)
-        t_k = t_before * excl
+        t_k = t_before.to(dt) * excl
         wgt = alpha * t_k
-        q = torch.bmm(_feats(e), gfa) + terms["t"] * gda  # (A, n, P)
-        wq = wgt * q
+        q = torch.bmm(_feats(e).to(dt).float(), gfa) + terms["t"] * gda  # (A, n, P) f32
+        q_d = q.to(dt)
+        wq = (wgt * q_d).float()
         tot_wq = torch.sum(wq, dim=1, keepdim=True)
-        suffix = s_q[act] + (tot_wq - torch.cumsum(wq, dim=1))  # entries after k
-        dalpha = t_k * q - (suffix + gtf[act]) * (1.0 / torch.clamp(one_m, min=0.01))
-        dalpha = torch.where((alpha > 0.0) & (alpha < cfg.alpha_max), dalpha, 0.0)
+        suffix = s_q[act].to(dt) + (tot_wq - torch.cumsum(wq, dim=1)).to(dt)  # entries after k
+        dalpha = t_k * q_d - (suffix + gtf[act]) * (1.0 / torch.clamp(one_m, min=0.01))
+        af = alpha.float()
+        dalpha = torch.where((af > 0.0) & (af < pp.effective_alpha_max(cfg)), dalpha, 0.0)
 
         dx, dy = terms["dx"], terms["dy"]
         dpow = dalpha * alpha
         t1 = dpow * dx
         t2 = dpow * dy
-        s_x, s_y = t1.sum(-1), t2.sum(-1)
-        s_xx, s_xy, s_yy = (t1 * dx).sum(-1), (t1 * dy).sum(-1), (t2 * dy).sum(-1)
+        s_x, s_y = t1.float().sum(-1), t2.float().sum(-1)
+        s_xx, s_xy, s_yy = ((t1 * dx).float().sum(-1), (t1 * dy).float().sum(-1), (t2 * dy).float().sum(-1))
         ca, cb, cc = cols["ca"][..., 0], cols["cb"][..., 0], cols["cc"][..., 0]
+        wgt = wgt.float()
         dfeat = torch.bmm(wgt, gfa.transpose(1, 2))  # (A, n, 7)
         wgd = wgt * gda
         inside = terms["inside"]
@@ -224,7 +290,7 @@ def composite_bwd_plain(
                 -0.5 * s_xx,
                 -s_xy,
                 -0.5 * s_yy,
-                (dalpha * terms["ex"]).sum(-1),
+                (dalpha * terms["ex"]).float().sum(-1),
                 *dfeat[..., 0:6].unbind(-1),
                 -(u * pxa).sum(-1),
                 -(u * pya).sum(-1),
@@ -278,7 +344,7 @@ def composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres: flo
         e, idx = _chunk(entries, tile_start, tile_len, act, c, k, cut=weight_thres > 0)
         alpha, _ = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
         _, excl, total = _excl_total(alpha)
-        wm = alpha * excl * trans[act] * m[act]
+        wm = (alpha * excl).float() * trans[act] * m[act]
         imp[0, idx.reshape(-1)] = wm.sum(-1).reshape(-1)
         cnt[0, idx.reshape(-1)] = (wm >= weight_thres).to(torch.float32).sum(-1).reshape(-1)
         trans[act] = trans[act] * total
@@ -299,13 +365,14 @@ def fwd_cluster_size(cfg: RasterConfig) -> int:
 
 def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig, tpv: int | None = None):
     """Forward composite -> (T, OUT_ROWS, P), over views of `tpv` tiles
-    each (None: one view). Kernel: csrc/composite_fwd.cu, launched as one
-    cluster of `fwd_cluster_size(cfg)` blocks per tile."""
+    each (None: one view). Kernel: csrc/composite_fwd.cu (its bf16 instance
+    under cfg.bf16_pairs), launched as one cluster of
+    `fwd_cluster_size(cfg)` blocks per tile."""
     if entries.device.type == "cpu":
         return composite_fwd_plain(entries, tile_start, tile_len, ntx, cfg, tpv)
     e, t, tpv = _check(entries, tile_start, tile_len, cfg, tpv)
     out = torch.empty((t, OUT_ROWS, cfg.tile_pixels), dtype=torch.float32, device=entries.device)
-    fwd_kernel.launch(
+    (fwd_bf16_kernel if cfg.bf16_pairs else fwd_kernel).launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out.data_ptr(), t, tpv,
         fwd_cluster_size(cfg), *_tail(ntx, cfg, entries.device),
     )
@@ -323,7 +390,7 @@ def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: R
     dentries = torch.zeros_like(entries)
     # scratch: the order in which the kernel's blocks take the tiles
     order = torch.empty(t, dtype=torch.int32, device=entries.device)
-    bwd_kernel.launch(
+    (bwd_bf16_kernel if cfg.bf16_pairs else bwd_kernel).launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), out_fwd.data_ptr(),
         gout.data_ptr(), dentries.data_ptr(), order.data_ptr(), t, tpv, *_tail(ntx, cfg, entries.device),
     )
@@ -340,7 +407,7 @@ def composite_stats(entries, tile_start, tile_len, mask, weight_thres: float, nt
     # zeros: the kernel writes only the chunks its replay reaches
     imp = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
     cnt = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
-    stats_kernel.launch(
+    (stats_bf16_kernel if cfg.bf16_pairs else stats_kernel).launch(
         entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), mask.data_ptr(),
         weight_thres, imp.data_ptr(), cnt.data_ptr(), len(tile_start), *_tail(ntx, cfg, entries.device),
     )

@@ -87,6 +87,17 @@
 // query (`composite_bwd_occupancy`) gives 2 blocks of 512 threads per SM.
 // The design with a tree per column had 63 registers. The ordering kernel
 // has 22 registers and takes about 9 us a launch at 512 tiles.
+//
+// The bf16 instance (`composite_bwd_bf16_launch`, RasterConfig.bf16_pairs;
+// the reference's bf16 branches of `_bwd_kernel`, composite_pallas.py:332-334,
+// 382-415, 429-449) follows the rounding contract of render/composite.py:
+// t_k, w, q_d, w q_d, the suffix, dalpha and its products in bf16, every
+// reduction and the depth-plane chain in float32, the `active` mask against
+// alpha_max rounded to bf16. The sum of bf16(w q_d) over the chunk needs
+// the chunk's T_before, known only after pass 1, so pass 1 takes only the
+// ballots and the total product, and a walk over the live entries
+// (`wq_total_bf16`) forms that sum before pass 2: one more pass than the f32
+// instance, which sums alpha excl q in pass 1 and scales it by T_before.
 #include "composite_common.cuh"
 
 namespace composite {
@@ -149,24 +160,60 @@ __device__ __forceinline__ Staged staged_at(const float* sh, int k) {
   return s;
 }
 
-// alpha of entry k at (dx, dy) from its first eight rows
+// alpha of entry k at (dx, dy) from its first eight rows (BF16: bf16 pair
+// math, alpha_bf16; dx, dy are returned rounded to bf16)
+template <bool BF16>
 __device__ __forceinline__ float staged_alpha(const float4& m, const float4& o, float px, float py,
                                               const Cfg& c, float* dx, float* dy, float* ex) {
   *dx = px - m.x;
   *dy = py - m.y;
-  return alpha_of(m.z, m.w, o.x, o.y, *dx, *dy, c, ex);
+  if constexpr (BF16) {
+    const float a = alpha_bf16(m.z, m.w, o.x, o.y, *dx, *dy, c, ex);
+    *dx = round_bf16(*dx);
+    *dy = round_bf16(*dy);
+    return a;
+  } else {
+    return alpha_of(m.z, m.w, o.x, o.y, *dx, *dy, c, ex);
+  }
 }
 
 // feat_dot: sum of the 7 composited features times g, in the same order
+// (BF16: each feature rounded to bf16 first)
+template <bool BF16>
 __device__ __forceinline__ float staged_feat_dot(const Staged& s, const float* g) {
+  const auto f16 = [](float x) { return BF16 ? round_bf16(x) : x; };
   float f = 0.0f;
-  f += s.v[1].z * g[0];
-  f += s.v[1].w * g[1];
-  f += s.v[2].x * g[2];
-  f += s.v[2].y * g[3];
-  f += s.v[2].z * g[4];
-  f += s.v[2].w * g[5];
-  return f + s.w.x * g[6];
+  f += f16(s.v[1].z) * g[0];
+  f += f16(s.v[1].w) * g[1];
+  f += f16(s.v[2].x) * g[2];
+  f += f16(s.v[2].y) * g[3];
+  f += f16(s.v[2].z) * g[4];
+  f += f16(s.v[2].w) * g[5];
+  return f + f16(s.w.x) * g[6];
+}
+
+// The bf16 instance's sum over the chunk's entries of bf16(w q_d), in
+// float32, for this thread's pixel: a walk over the warp's live entries
+// (`live`, one word of `sub` entries a round) with the chunk's T_before
+// rounded to bf16 (`tb`). Culled entries have w = +0 and add nothing.
+__device__ __forceinline__ float wq_total_bf16(const float* sh, const unsigned* live, int nsub,
+                                               int sub, float px, float py, float tb,
+                                               const float* gf, float g_depth, const Cfg& cfg) {
+  float excl = 1.0f;
+  float tot = 0.0f;
+  for (int r = 0; r < nsub; ++r) {
+    for (unsigned word = live[r]; word != 0u; word &= word - 1u) {
+      const Staged s = staged_at(sh, r * sub + __ffs(word) - 1);
+      float dx, dy, ex;
+      const float alpha = staged_alpha<true>(s.v[0], s.v[1], px, py, cfg, &dx, &dy, &ex);
+      const PlaneDepth d = depth_of(s.v[3], s.w.y, px, py, cfg);
+      const float w = mul_bf16(alpha, mul_bf16(tb, round_bf16(excl)));
+      const float q = staged_feat_dot<true>(s, gf) + d.t * g_depth;
+      tot += mul_bf16(w, round_bf16(q));
+      excl *= one_minus_bf16(alpha);
+    }
+  }
+  return tot;
 }
 
 // Warp sums of the N per-lane values v by halving transposes: at the step of
@@ -230,8 +277,12 @@ __global__ void tile_order_kernel(const int* __restrict__ tile_len,
   if (t < num_tiles) order[rank] = t;
 }
 
-// KT: the chunk K at compile time, or 0 to take `kchunk_arg`
-template <int KT>
+// KT: the chunk K at compile time, or 0 to take `kchunk_arg`. BF16: the
+// bf16 pair-math instance (the rounding contract of render/composite.py):
+// pass 1 takes only alpha, the ballots and the chunk's total product; a
+// walk over the live entries (`wq_total_bf16`) then sums bf16(w q_d) with
+// the chunk's T_before, which the suffix needs before pass 2.
+template <int KT, bool BF16>
 __global__ void __launch_bounds__(512, 2)
 bwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
@@ -261,13 +312,16 @@ bwd_kernel(const float* __restrict__ entries, long long e_total,
   const int stop = (int)out_fwd[tile_off + 9 * npix];
 
   const float* g = gout + tile_off + p;
-  float gf[7];  // feature-channel cotangents in feature order r g b nx ny nz conf
+  // feature-channel cotangents in feature order r g b nx ny nz conf
+  // (BF16: rounded to bf16, as g_T * T_final)
+  const auto g16 = [](float x) { return BF16 ? round_bf16(x) : x; };
+  float gf[7];
 #pragma unroll
-  for (int c = 0; c < 6; ++c) gf[c] = g[c * npix];
-  gf[6] = g[7 * npix];
+  for (int c = 0; c < 6; ++c) gf[c] = g16(g[c * npix]);
+  gf[6] = g16(g[7 * npix]);
   const float g_depth = g[6 * npix];
   const float t_final = out_fwd[tile_off + 8 * npix + p];
-  const float gtf = g[8 * npix] * t_final;
+  const float gtf = g16(g[8 * npix] * t_final);
   float t_after = t_final;
   float s_q = 0.0f;
 
@@ -291,25 +345,38 @@ bwd_kernel(const float* __restrict__ entries, long long e_total,
           if (k0 + j < sub) {
             const float4* e = reinterpret_cast<const float4*>(sh + (r * sub + k0 + j) * kEntryStride);
             float dx, dy, ex;
-            alpha[j] = staged_alpha(e[0], e[1], px, py, cfg, &dx, &dy, &ex);
+            alpha[j] = staged_alpha<BF16>(e[0], e[1], px, py, cfg, &dx, &dy, &ex);
           }
         }
 #pragma unroll
         for (int j = 0; j < kScan; ++j) {
           if (__ballot_sync(0xffffffffu, alpha[j] > 0.0f) == 0u) continue;
           word |= 1u << (k0 + j);
-          const Staged s = staged_at(sh, r * sub + k0 + j);
-          const PlaneDepth d = depth_of(s.v[3], s.w.y, px, py, cfg);
-          const float q = staged_feat_dot(s, gf) + d.t * g_depth;
-          u_sum += alpha[j] * excl * q;
-          excl *= 1.0f - alpha[j];
+          if constexpr (BF16) {
+            excl *= one_minus_bf16(alpha[j]);
+          } else {
+            const Staged s = staged_at(sh, r * sub + k0 + j);
+            const PlaneDepth d = depth_of(s.v[3], s.w.y, px, py, cfg);
+            const float q = staged_feat_dot<false>(s, gf) + d.t * g_depth;
+            u_sum += alpha[j] * excl * q;
+            excl *= 1.0f - alpha[j];
+          }
         }
       }
       if (lane == 0) live[warp * nsub + r] = word;
     }
     __syncwarp();
-    const float t_before = t_after / fmaxf(excl, 1e-30f);
-    const float tot_wq = t_before * u_sum;
+    float t_before, tot_wq;
+    if constexpr (BF16) {
+      t_before = t_after / fmaxf(round_bf16(excl), 1e-30f);
+      tot_wq = wq_total_bf16(sh, live + warp * nsub, nsub, sub, px, py, round_bf16(t_before), gf,
+                             g_depth, cfg);
+    } else {
+      t_before = t_after / fmaxf(excl, 1e-30f);
+      tot_wq = t_before * u_sum;
+    }
+    const float tb = round_bf16(t_before);  // BF16 only
+    const float sqb = round_bf16(s_q);      // BF16 only
 
     // pass 2: per-pair gradients of the warp's live entries, one round of
     // `sub` entries per ballot word
@@ -321,24 +388,51 @@ bwd_kernel(const float* __restrict__ entries, long long e_total,
         const int kk = __ffs(word) - 1;
         const Staged s = staged_at(sh, r * sub + kk);
         float dx, dy, ex;
-        const float alpha = staged_alpha(s.v[0], s.v[1], px, py, cfg, &dx, &dy, &ex);
+        const float alpha = staged_alpha<BF16>(s.v[0], s.v[1], px, py, cfg, &dx, &dy, &ex);
         const PlaneDepth d = depth_of(s.v[3], s.w.y, px, py, cfg);
-        const float one_m = 1.0f - alpha;
-        const float t_k = t_before * excl;
-        const float w = alpha * t_k;
-        const float q = staged_feat_dot(s, gf) + d.t * g_depth;
-        incl += w * q;
-        const float suffix = s_q + (tot_wq - incl);  // entries after k
-        float dalpha = t_k * q - (suffix + gtf) * (1.0f / fmaxf(one_m, 0.01f));
-        if (!(alpha > 0.0f && alpha < cfg.alpha_max)) dalpha = 0.0f;
-        const float dpow = dalpha * alpha;
-        const float t1 = dpow * dx;
-        const float t2 = dpow * dy;
+        const float q = staged_feat_dot<BF16>(s, gf) + d.t * g_depth;
+        float one_m, w, dalpha, t1, t2, m_xx, m_xy, m_yy, dop;
+        if constexpr (BF16) {
+          // every step of dalpha and of its products rounds to bf16; the
+          // suffix over later entries is formed in float32, then rounded
+          one_m = one_minus_bf16(alpha);
+          const float t_k = mul_bf16(tb, round_bf16(excl));
+          w = mul_bf16(alpha, t_k);
+          const float q_d = round_bf16(q);
+          incl += mul_bf16(w, q_d);
+          const bf16 suffix = __hadd(to_bf16(sqb), to_bf16(tot_wq - incl));  // entries after k
+          const bf16 recip = to_bf16(1.0f / fmaxf(one_m, round_bf16(0.01f)));
+          dalpha = to_f32(__hsub(__hmul(to_bf16(t_k), to_bf16(q_d)),
+                                 __hmul(__hadd(suffix, to_bf16(gtf)), recip)));
+          if (!(alpha > 0.0f && alpha < cfg.alpha_max)) dalpha = 0.0f;
+          const float dpow = mul_bf16(dalpha, alpha);
+          t1 = mul_bf16(dpow, dx);
+          t2 = mul_bf16(dpow, dy);
+          m_xx = mul_bf16(t1, dx);
+          m_xy = mul_bf16(t1, dy);
+          m_yy = mul_bf16(t2, dy);
+          dop = mul_bf16(dalpha, ex);
+        } else {
+          one_m = 1.0f - alpha;
+          const float t_k = t_before * excl;
+          w = alpha * t_k;
+          incl += w * q;
+          const float suffix = s_q + (tot_wq - incl);  // entries after k
+          dalpha = t_k * q - (suffix + gtf) * (1.0f / fmaxf(one_m, 0.01f));
+          if (!(alpha > 0.0f && alpha < cfg.alpha_max)) dalpha = 0.0f;
+          const float dpow = dalpha * alpha;
+          t1 = dpow * dx;
+          t2 = dpow * dy;
+          m_xx = t1 * dx;
+          m_xy = t1 * dy;
+          m_yy = t2 * dy;
+          dop = dalpha * ex;
+        }
         const float wgd = w * g_depth;
         const float com = d.inside ? wgd * d.inv_denom : 0.0f;
         const float u = com * d.t_raw;
         const float v[kUsedRows] = {
-            t1, t2, t1 * dx, t1 * dy, t2 * dy, dalpha * ex,
+            t1, t2, m_xx, m_xy, m_yy, dop,
             w * gf[0], w * gf[1], w * gf[2], w * gf[3], w * gf[4], w * gf[5],
             -(u * px), -(u * py), -u, com, w * gf[6],
             d.inside ? 0.0f : wgd * d.t,
@@ -396,10 +490,36 @@ inline int smem_bytes(int tile_pixels, int kchunk) {
 
 // the instance for chunk K: the default K = 128 with K known at compile
 // time, any other K from its argument
-using Kernel = decltype(&bwd_kernel<0>);
-inline Kernel kernel_for(int kchunk) { return kchunk == 128 ? bwd_kernel<128> : bwd_kernel<0>; }
+using Kernel = decltype(&bwd_kernel<0, false>);
+template <bool BF16>
+inline Kernel kernel_for(int kchunk) {
+  return kchunk == 128 ? bwd_kernel<128, BF16> : bwd_kernel<0, BF16>;
+}
 
 constexpr int kOrderThreads = 256;
+
+template <bool BF16>
+int launch(const float* entries, long long e_total, const int* tile_start, const int* tile_len,
+           const float* out_fwd, const float* gout, float* dentries, int* order, int num_tiles,
+           int tpv, int ntx, int tile_w, int tile_h, int kchunk, const Cfg& cfg, void* stream) {
+  if (num_tiles == 0) return 0;
+  if (tpv <= 0 || num_tiles % tpv != 0) return (int)cudaErrorInvalidValue;
+  if (kchunk % (kchunk < kSub ? kchunk : kSub)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int npix = tile_w * tile_h;
+  const int nt = kOrderThreads;
+  tile_order_kernel<<<(num_tiles + nt - 1) / nt, nt, nt * (int)sizeof(int), st>>>(
+      tile_len, out_fwd, num_tiles, npix, kchunk, order);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Kernel kernel = kernel_for<BF16>(kchunk);
+  const int smem = smem_bytes(npix, kchunk);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<num_tiles, npix, smem, st>>>(entries, e_total, tile_start, tile_len, out_fwd, gout,
+                                        order, dentries, tpv, ntx, tile_w, tile_h, kchunk, cfg);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace composite
 
@@ -412,25 +532,23 @@ extern "C" int composite_bwd_launch(const float* entries, long long e_total,
                                     int* order, int num_tiles, int tpv, int ntx, int tile_w,
                                     int tile_h, int kchunk, float alpha_cut, float alpha_max,
                                     float term_eps, float depth_lo, float depth_hi, void* stream) {
-  if (num_tiles == 0) return 0;
-  if (tpv <= 0 || num_tiles % tpv != 0) return (int)cudaErrorInvalidValue;
-  if (kchunk % (kchunk < composite::kSub ? kchunk : composite::kSub))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int npix = tile_w * tile_h;
-  const int nt = composite::kOrderThreads;
-  composite::tile_order_kernel<<<(num_tiles + nt - 1) / nt, nt, nt * (int)sizeof(int), st>>>(
-      tile_len, out_fwd, num_tiles, npix, kchunk, order);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
-  const composite::Kernel kernel = composite::kernel_for(kchunk);
-  const int smem = composite::smem_bytes(npix, kchunk);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<num_tiles, npix, smem, st>>>(entries, e_total, tile_start, tile_len, out_fwd, gout,
-                                        order, dentries, tpv, ntx, tile_w, tile_h, kchunk, cfg);
-  return (int)cudaGetLastError();
+  return composite::launch<false>(entries, e_total, tile_start, tile_len, out_fwd, gout, dentries,
+                                  order, num_tiles, tpv, ntx, tile_w, tile_h, kchunk,
+                                  {alpha_cut, alpha_max, term_eps, depth_lo, depth_hi}, stream);
+}
+
+// The bf16 pair-math instance (RasterConfig.bf16_pairs), with the same
+// arguments; `alpha_max` comes rounded to bf16.
+extern "C" int composite_bwd_bf16_launch(const float* entries, long long e_total,
+                                         const int* tile_start, const int* tile_len,
+                                         const float* out_fwd, const float* gout, float* dentries,
+                                         int* order, int num_tiles, int tpv, int ntx, int tile_w,
+                                         int tile_h, int kchunk, float alpha_cut, float alpha_max,
+                                         float term_eps, float depth_lo, float depth_hi,
+                                         void* stream) {
+  return composite::launch<true>(entries, e_total, tile_start, tile_len, out_fwd, gout, dentries,
+                                 order, num_tiles, tpv, ntx, tile_w, tile_h, kchunk,
+                                 {alpha_cut, alpha_max, term_eps, depth_lo, depth_hi}, stream);
 }
 
 // What the build gives the replay kernel that a launch at this tile size
@@ -438,7 +556,7 @@ extern "C" int composite_bwd_launch(const float* entries, long long e_total,
 // bytes a block, and the blocks an SM holds (the CUDA occupancy query).
 extern "C" int composite_bwd_occupancy(int tile_pixels, int kchunk, int* registers,
                                        int* local_bytes, int* smem_bytes, int* blocks_per_sm) {
-  const composite::Kernel kernel = composite::kernel_for(kchunk);
+  const composite::Kernel kernel = composite::kernel_for<false>(kchunk);
   const int smem = composite::smem_bytes(tile_pixels, kchunk);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -11,8 +11,12 @@
 //
 // Arithmetic is strict float32 (no fast-math), with IEEE division, in the
 // op order of activegs_torch/render/preprocess.py::eval_alpha_depth_cols.
+// Each kernel also has an instance for bf16 pair math
+// (RasterConfig.bf16_pairs), which rounds where the rounding contract of
+// activegs_torch/render/composite.py says, with explicit bf16 intrinsics.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace composite {
@@ -106,6 +110,37 @@ __device__ __forceinline__ float feat_dot(const float* sh, int kchunk, int k, co
 #pragma unroll
   for (int c = 0; c < 6; ++c) s += sh[(kColR + c) * kchunk + k] * g[c];
   return s + sh[kConf * kchunk + k] * g[6];
+}
+
+// ---- bf16 pair math ----
+// Pair values in bf16 are carried as floats that hold bf16 values; each
+// rounded step is a bf16 intrinsic (__hmul, __hadd, __hsub: one rounding,
+// as PyTorch's CPU bf16 arithmetic gives) or __float2bfloat16_rn.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ bf16 to_bf16(float x) { return __float2bfloat16_rn(x); }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// x rounded to bf16, as a float
+__device__ __forceinline__ float round_bf16(float x) { return to_f32(to_bf16(x)); }
+// bf16(1 - a) for a bf16 value a
+__device__ __forceinline__ float one_minus_bf16(float a) { return to_f32(__hsub(to_bf16(1.0f), to_bf16(a))); }
+// bf16(a * b) for bf16 values a, b
+__device__ __forceinline__ float mul_bf16(float a, float b) { return to_f32(__hmul(to_bf16(a), to_bf16(b))); }
+
+// eval_alpha in bf16 pair math: dx, dy (formed in float32) and the conic
+// and opacity rounded to bf16, every product and sum of the power rounded,
+// expf on the bf16 power rounded once, op * exp rounded, then the clamp at
+// c.alpha_max (which the launch passes rounded to bf16) and the cut on the
+// value. Returns alpha and `ex` as floats holding bf16 values.
+__device__ __forceinline__ float alpha_bf16(float ca, float cb, float cc, float op, float dx,
+                                            float dy, const Cfg& c, float* ex) {
+  const bf16 x = to_bf16(dx), y = to_bf16(dy);
+  const bf16 quad = __hadd(__hmul(__hmul(to_bf16(ca), x), x), __hmul(__hmul(to_bf16(cc), y), y));
+  const bf16 power = __hsub(__hmul(to_bf16(-0.5f), quad), __hmul(__hmul(to_bf16(cb), x), y));
+  const bf16 e = to_bf16(expf(fminf(fmaxf(to_f32(power), kPowerFloor), 0.0f)));
+  *ex = to_f32(e);
+  const float a = fminf(to_f32(__hmul(to_bf16(op), e)), c.alpha_max);
+  return a >= c.alpha_cut ? a : 0.0f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

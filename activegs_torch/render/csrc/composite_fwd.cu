@@ -88,6 +88,17 @@
 // cycles each. At 512x512, with about 7.5 warps a sub-partition, the
 // kernel's device time is 1.7x the live-work bound at the card's measured
 // rates: alpha on every pair, the rest on pairs of live rows.
+//
+// The bf16 instance (`composite_fwd_bf16_launch`, RasterConfig.bf16_pairs;
+// the reference's bf16 branch of `_fwd_kernel`, composite_pallas.py:238-248)
+// is the same kernel with the pair math of the rounding contract in
+// render/composite.py: alpha in bf16 (`alpha_bf16`), w = bf16(bf16(alpha *
+// bf16(excl)) * bf16(T)), the features rounded to bf16, the sums, the
+// depth, the in-chunk product and T in float32. It is scalar, one pixel a
+// thread: a scalar bf16 instruction costs what a packed one does, and each
+// bf16/f32 seam adds a conversion, so it does more instructions than the
+// f32 instance. Packing two pixels a thread (`__nv_bfloat162`) is left to a
+// redesign. The cull stays exact: a pair with bf16 alpha == 0 has w = +0.
 #include <cooperative_groups.h>
 
 #include "composite_common.cuh"
@@ -122,8 +133,12 @@ __device__ __forceinline__ void stage_chunk(float4* sh, const float* __restrict_
 // alphas first (independent, so their latencies overlap), then in entry
 // order, where alpha > 0, the depth, the weight and the accumulations; excl
 // takes every entry. eval_alpha / eval_depth read the entry's rows from
-// registers (kchunk = 1, k = 0).
-template <int G>
+// registers (kchunk = 1, k = 0). BF16: bf16 pair math, where `trans` holds
+// the chunk's starting T rounded to bf16; w = bf16(bf16(alpha * bf16(excl))
+// * T), the features rounded to bf16, the products w * f (exact) and w * t
+// summed in float32, and excl (float32) times bf16(1 - alpha). A pair with
+// alpha == 0 still adds exactly nothing: w = +0.
+template <int G, bool BF16>
 __device__ __forceinline__ void composite_entries(const float4* sh, int k0, const Tile& tl,
                                                   const Cfg& cfg, float trans, float& excl,
                                                   float* acc) {
@@ -135,7 +150,10 @@ __device__ __forceinline__ void composite_entries(const float4* sh, int k0, cons
     const float dx = tl.px - e[kMeanX];
     const float dy = tl.py - e[kMeanY];
     float ex;
-    alpha[u] = eval_alpha(e, 1, 0, dx, dy, cfg, &ex);
+    if constexpr (BF16)
+      alpha[u] = alpha_bf16(e[kConA], e[kConB], e[kConC], e[kOpac], dx, dy, cfg, &ex);
+    else
+      alpha[u] = eval_alpha(e, 1, 0, dx, dy, cfg, &ex);
   }
 #pragma unroll
   for (int u = 0; u < G; ++u) {
@@ -147,13 +165,24 @@ __device__ __forceinline__ void composite_entries(const float4* sh, int k0, cons
         e[4 * q] = v.x, e[4 * q + 1] = v.y, e[4 * q + 2] = v.z, e[4 * q + 3] = v.w;
       }
       const PlaneDepth d = eval_depth(e, 1, 0, tl.px, tl.py, cfg);
-      const float w = alpha[u] * excl * trans;
+      if constexpr (BF16) {
+        const float w = mul_bf16(mul_bf16(alpha[u], round_bf16(excl)), trans);
 #pragma unroll
-      for (int c = 0; c < 6; ++c) acc[c] += e[kColR + c] * w;
-      acc[6] += e[kConf] * w;
-      acc[7] += w * d.t;
+        for (int c = 0; c < 6; ++c) acc[c] += round_bf16(e[kColR + c]) * w;
+        acc[6] += round_bf16(e[kConf]) * w;
+        acc[7] += w * d.t;
+      } else {
+        const float w = alpha[u] * excl * trans;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[c] += e[kColR + c] * w;
+        acc[6] += e[kConf] * w;
+        acc[7] += w * d.t;
+      }
     }
-    excl *= 1.0f - alpha[u];
+    if constexpr (BF16)
+      excl *= one_minus_bf16(alpha[u]);
+    else
+      excl *= 1.0f - alpha[u];
   }
 }
 
@@ -174,6 +203,9 @@ __device__ __forceinline__ Tile split_tile_of(const int* __restrict__ tile_start
   return tl;
 }
 
+// BF16: the bf16 pair-math instance (composite_entries); T across chunks
+// stays float32, times each chunk's total product rounded to bf16.
+template <bool BF16>
 __global__ void __launch_bounds__(512)
 fwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
@@ -203,10 +235,12 @@ fwd_kernel(const float* __restrict__ entries, long long e_total,
     stage_chunk(sh, entries, e_total, tl.start, i, kchunk);
     __syncthreads();
     float excl = 1.0f;
+    const float t_chunk = BF16 ? round_bf16(trans) : trans;
     int k = 0;
-    for (; k + kGroup <= kchunk; k += kGroup) composite_entries<kGroup>(sh, k, tl, cfg, trans, excl, acc);
-    for (; k < kchunk; ++k) composite_entries<1>(sh, k, tl, cfg, trans, excl, acc);
-    trans *= excl;
+    for (; k + kGroup <= kchunk; k += kGroup)
+      composite_entries<kGroup, BF16>(sh, k, tl, cfg, t_chunk, excl, acc);
+    for (; k < kchunk; ++k) composite_entries<1, BF16>(sh, k, tl, cfg, t_chunk, excl, acc);
+    trans *= BF16 ? round_bf16(excl) : excl;
   }
   // no block leaves while a sibling may still read its flags
   cluster.sync();
@@ -241,13 +275,33 @@ inline cudaLaunchConfig_t launch_config(int num_tiles, int cluster, int npix, in
 }
 
 // the staged chunk; raises the kernel's dynamic shared memory limit to it
+template <bool BF16>
 inline cudaError_t chunk_smem(int kchunk, int* smem) {
   *smem = kStride * kchunk * (int)sizeof(float);
-  return cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  return cudaFuncSetAttribute(fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
 inline bool splits(int cluster, int tile_w, int tile_h) {
   return cluster >= 1 && tile_h % cluster == 0 && (tile_w * tile_h / cluster) % 32 == 0;
+}
+
+template <bool BF16>
+int launch(const float* entries, long long e_total, const int* tile_start, const int* tile_len,
+           float* out, int num_tiles, int tpv, int cluster, int ntx, int tile_w, int tile_h,
+           int kchunk, const Cfg& cfg, void* stream) {
+  if (!splits(cluster, tile_w, tile_h)) return (int)cudaErrorInvalidValue;
+  if (num_tiles == 0) return 0;
+  if (tpv <= 0 || num_tiles % tpv != 0) return (int)cudaErrorInvalidValue;
+  int smem;
+  cudaError_t err = chunk_smem<BF16>(kchunk, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t lc =
+      launch_config(num_tiles, cluster, tile_w * tile_h, smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&lc, fwd_kernel<BF16>, entries, e_total, tile_start, tile_len, out, tpv,
+                           ntx, tile_w, tile_h, kchunk, cfg);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace composite
@@ -260,20 +314,22 @@ extern "C" int composite_fwd_launch(const float* entries, long long e_total,
                                     int num_tiles, int tpv, int cluster, int ntx, int tile_w,
                                     int tile_h, int kchunk, float alpha_cut, float alpha_max,
                                     float term_eps, float depth_lo, float depth_hi, void* stream) {
-  if (!composite::splits(cluster, tile_w, tile_h)) return (int)cudaErrorInvalidValue;
-  if (num_tiles == 0) return 0;
-  if (tpv <= 0 || num_tiles % tpv != 0) return (int)cudaErrorInvalidValue;
-  const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
-  int smem;
-  cudaError_t err = composite::chunk_smem(kchunk, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t lc = composite::launch_config(num_tiles, cluster, tile_w * tile_h, smem,
-                                                         (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&lc, composite::fwd_kernel, entries, e_total, tile_start, tile_len, out,
-                           tpv, ntx, tile_w, tile_h, kchunk, cfg);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return composite::launch<false>(entries, e_total, tile_start, tile_len, out, num_tiles, tpv,
+                                  cluster, ntx, tile_w, tile_h, kchunk,
+                                  {alpha_cut, alpha_max, term_eps, depth_lo, depth_hi}, stream);
+}
+
+// The bf16 pair-math instance (RasterConfig.bf16_pairs), with the same
+// arguments; `alpha_max` comes rounded to bf16.
+extern "C" int composite_fwd_bf16_launch(const float* entries, long long e_total,
+                                         const int* tile_start, const int* tile_len, float* out,
+                                         int num_tiles, int tpv, int cluster, int ntx, int tile_w,
+                                         int tile_h, int kchunk, float alpha_cut, float alpha_max,
+                                         float term_eps, float depth_lo, float depth_hi,
+                                         void* stream) {
+  return composite::launch<true>(entries, e_total, tile_start, tile_len, out, num_tiles, tpv,
+                                 cluster, ntx, tile_w, tile_h, kchunk,
+                                 {alpha_cut, alpha_max, term_eps, depth_lo, depth_hi}, stream);
 }
 
 // What the build gives the kernel at this tile size, K and cluster size:
@@ -285,10 +341,10 @@ extern "C" int composite_fwd_occupancy(int tile_w, int tile_h, int kchunk, int c
                                        int* active_clusters) {
   if (!composite::splits(cluster, tile_w, tile_h)) return (int)cudaErrorInvalidValue;
   int smem;
-  cudaError_t err = composite::chunk_smem(kchunk, &smem);
+  cudaError_t err = composite::chunk_smem<false>(kchunk, &smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, composite::fwd_kernel);
+  err = cudaFuncGetAttributes(&fa, composite::fwd_kernel<false>);
   if (err != cudaSuccess) return (int)err;
   *registers = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
@@ -296,7 +352,7 @@ extern "C" int composite_fwd_occupancy(int tile_w, int tile_h, int kchunk, int c
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t lc =
       composite::launch_config(1, cluster, tile_w * tile_h, smem, nullptr, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(active_clusters, composite::fwd_kernel, &lc);
+  return (int)cudaOccupancyMaxActiveClusters(active_clusters, composite::fwd_kernel<false>, &lc);
 }
 
 COMPOSITE_EXPORT_ERRSTR(composite_fwd)

@@ -20,11 +20,18 @@
 // parameters are staged in shared memory; the two per-entry sums use warp
 // shuffles, then shared memory across the block's warps for the whole
 // chunk (2 x K x 16 warps partials); every entry belongs to one tile, so
-// the outputs need no atomics.
+// the outputs need no atomics. The bf16 instance
+// (`composite_stats_bf16_launch`, RasterConfig.bf16_pairs; the reference's
+// `_stats_kernel` under bf16, composite_pallas.py:581-584) takes alpha,
+// 1 - alpha and alpha * excl in bf16, then the weight times T in float32.
 #include "composite_common.cuh"
 
 namespace composite {
 
+// BF16: bf16 pair math (alpha_bf16; w = float32(bf16(alpha * bf16(excl)))
+// * T, then float32; excl times bf16(1 - alpha); T times each chunk's total
+// product rounded to bf16).
+template <bool BF16>
 __global__ void __launch_bounds__(512)
 stats_kernel(const float* __restrict__ entries, long long e_total,
              const int* __restrict__ tile_start, const int* __restrict__ tile_len,
@@ -51,17 +58,20 @@ stats_kernel(const float* __restrict__ entries, long long e_total,
       const float dx = tl.px - sh[kMeanX * kchunk + k];
       const float dy = tl.py - sh[kMeanY * kchunk + k];
       float ex;
-      const float alpha = eval_alpha(sh, kchunk, k, dx, dy, cfg, &ex);
-      const float wm = alpha * excl * trans * m;
+      const float alpha =
+          BF16 ? alpha_bf16(sh[kConA * kchunk + k], sh[kConB * kchunk + k], sh[kConC * kchunk + k],
+                            sh[kOpac * kchunk + k], dx, dy, cfg, &ex)
+               : eval_alpha(sh, kchunk, k, dx, dy, cfg, &ex);
+      const float wm = (BF16 ? mul_bf16(alpha, round_bf16(excl)) : alpha * excl) * trans * m;
       const float s_imp = warp_sum(wm);
       const float s_cnt = warp_sum(wm >= weight_thres ? 1.0f : 0.0f);
       if (lane == 0) {
         red[(warp * 2 + 0) * kchunk + k] = s_imp;
         red[(warp * 2 + 1) * kchunk + k] = s_cnt;
       }
-      excl *= 1.0f - alpha;
+      excl *= BF16 ? one_minus_bf16(alpha) : 1.0f - alpha;
     }
-    trans *= excl;
+    trans *= BF16 ? round_bf16(excl) : excl;
     __syncthreads();
     const long long base = tl.start + (long long)i * kchunk;
     for (int idx = p; idx < 2 * kchunk; idx += npix) {
@@ -75,6 +85,22 @@ stats_kernel(const float* __restrict__ entries, long long e_total,
   }
 }
 
+template <bool BF16>
+int launch(const float* entries, long long e_total, const int* tile_start, const int* tile_len,
+           const float* mask, float weight_thres, float* imp, float* cnt, int num_tiles, int ntx,
+           int tile_w, int tile_h, int kchunk, const Cfg& cfg, void* stream) {
+  if (num_tiles == 0) return 0;
+  const int nwarps = tile_w * tile_h / 32;
+  const int smem = (kUsedRows + 2 * nwarps) * kchunk * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(stats_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  stats_kernel<BF16><<<num_tiles, tile_w * tile_h, smem, (cudaStream_t)stream>>>(
+      entries, e_total, tile_start, tile_len, mask, weight_thres, imp, cnt, ntx, tile_w, tile_h,
+      kchunk, cfg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace composite
 
 extern "C" int composite_stats_launch(const float* entries, long long e_total,
@@ -84,17 +110,23 @@ extern "C" int composite_stats_launch(const float* entries, long long e_total,
                                       int kchunk, float alpha_cut, float alpha_max,
                                       float term_eps, float depth_lo, float depth_hi,
                                       void* stream) {
-  if (num_tiles == 0) return 0;
-  const composite::Cfg cfg{alpha_cut, alpha_max, term_eps, depth_lo, depth_hi};
-  const int nwarps = tile_w * tile_h / 32;
-  const int smem = (composite::kUsedRows + 2 * nwarps) * kchunk * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      composite::stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  composite::stats_kernel<<<num_tiles, tile_w * tile_h, smem, (cudaStream_t)stream>>>(
-      entries, e_total, tile_start, tile_len, mask, weight_thres, imp, cnt, ntx, tile_w, tile_h,
-      kchunk, cfg);
-  return (int)cudaGetLastError();
+  return composite::launch<false>(entries, e_total, tile_start, tile_len, mask, weight_thres, imp,
+                                  cnt, num_tiles, ntx, tile_w, tile_h, kchunk,
+                                  {alpha_cut, alpha_max, term_eps, depth_lo, depth_hi}, stream);
+}
+
+// The bf16 pair-math instance (RasterConfig.bf16_pairs), with the same
+// arguments; `alpha_max` comes rounded to bf16.
+extern "C" int composite_stats_bf16_launch(const float* entries, long long e_total,
+                                           const int* tile_start, const int* tile_len,
+                                           const float* mask, float weight_thres, float* imp,
+                                           float* cnt, int num_tiles, int ntx, int tile_w,
+                                           int tile_h, int kchunk, float alpha_cut,
+                                           float alpha_max, float term_eps, float depth_lo,
+                                           float depth_hi, void* stream) {
+  return composite::launch<true>(entries, e_total, tile_start, tile_len, mask, weight_thres, imp,
+                                 cnt, num_tiles, ntx, tile_w, tile_h, kchunk,
+                                 {alpha_cut, alpha_max, term_eps, depth_lo, depth_hi}, stream);
 }
 
 COMPOSITE_EXPORT_ERRSTR(composite_stats)

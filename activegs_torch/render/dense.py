@@ -32,10 +32,12 @@ def composite_dense(
     py = gy.reshape(1, -1)
 
     alpha, tdep = pp.eval_alpha_depth_cols(pp.entry_cols(entries), px, py, cfg)
+    # in the pair dtype (bf16 under cfg.bf16_pairs), then float32 as the
+    # reference's products with float32 operands promote it
     cum = torch.cumprod(1.0 - alpha, dim=0)
     excl = torch.cat([torch.ones_like(cum[:1]), cum[:-1]], dim=0)
-    weight = alpha * excl
-    t_final = cum[-1]
+    weight = (alpha * excl).float()
+    t_final = cum[-1].float()
     feats = torch.cat([entries[:, 6:12], entries[:, 16:17]], dim=1)  # (N, 7)
     ch = feats.T @ weight
     depth = torch.sum(weight * tdep, dim=0, keepdim=True)

@@ -175,17 +175,48 @@ def entry_cols(entries_t: torch.Tensor) -> dict:
     return {n: entries_t[..., i : i + 1] for i, n in enumerate(_COL_NAMES)}
 
 
+def pair_dtype(cfg: RasterConfig) -> torch.dtype:
+    """The dtype of the per-(entry, pixel) alpha terms: bfloat16 under
+    `cfg.bf16_pairs`, else float32."""
+    return torch.bfloat16 if cfg.bf16_pairs else torch.float32
+
+
+def effective_alpha_max(cfg: RasterConfig) -> float:
+    """The value alpha saturates at: cfg.alpha_max rounded to the pair
+    dtype (0.99 -> 0.98828125 in bfloat16). The backward `active` mask
+    compares against it, or clamped pairs would leak gradient."""
+    if cfg.bf16_pairs:
+        return float(torch.tensor(cfg.alpha_max, dtype=torch.bfloat16))
+    return cfg.alpha_max
+
+
+def _cut(alpha: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """alpha zeroed below alpha_cut; the test runs on a float32 upcast."""
+    return torch.where(alpha.float() >= cfg.alpha_cut, alpha, 0.0)
+
+
+def _alpha_terms(cols: dict, dx: torch.Tensor, dy: torch.Tensor, cfg: RasterConfig):
+    """(alpha, exp(power), dx, dy) in the pair dtype. Under bf16 pair math
+    dx/dy (formed in float32) and the conic/opacity columns are rounded to
+    bfloat16 and every product and sum rounds there; exp runs on the
+    bfloat16 power and rounds once."""
+    ca, cb, cc, op = cols["ca"], cols["cb"], cols["cc"], cols["op"]
+    if cfg.bf16_pairs:
+        b = torch.bfloat16
+        dx, dy, ca, cb, cc, op = (x.to(b) for x in (dx, dy, ca, cb, cc, op))
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    ex = torch.exp(torch.clamp(power, min=POWER_FLOOR, max=0.0))
+    alpha = _cut(torch.clamp(op * ex, max=effective_alpha_max(cfg)), cfg)
+    return alpha, ex, dx, dy
+
+
 def eval_alpha_depth_cols(cols: dict, px: torch.Tensor, py: torch.Tensor, cfg: RasterConfig):
     """Per-(entry, pixel) alpha = min(alpha_max, op * exp(min(0, power)))
-    zeroed below alpha_cut, and surfel-plane depth clamped to
-    [depth_lo, depth_hi] * dz (falls back to dz when the plane is edge-on).
-    cols hold (..., K, 1) columns, px/py (..., 1, P) pixel centers."""
-    dx = px - cols["mean_x"]
-    dy = py - cols["mean_y"]
-    power = -0.5 * (cols["ca"] * dx * dx + cols["cc"] * dy * dy) - cols["cb"] * dx * dy
-    alpha = cols["op"] * torch.exp(torch.clamp(power, min=POWER_FLOOR, max=0.0))
-    alpha = torch.clamp(alpha, max=cfg.alpha_max)
-    alpha = torch.where(alpha >= cfg.alpha_cut, alpha, 0.0)
+    zeroed below alpha_cut, in the pair dtype, and surfel-plane depth
+    (float32) clamped to [depth_lo, depth_hi] * dz (falls back to dz when
+    the plane is edge-on). cols hold (..., K, 1) columns, px/py (..., 1, P)
+    pixel centers."""
+    alpha, _, _, _ = _alpha_terms(cols, px - cols["mean_x"], py - cols["mean_y"], cfg)
 
     denom = cols["pa"] * px + cols["pb"] * py + cols["pc"]
     ok = torch.abs(denom) > 1e-8
@@ -197,13 +228,9 @@ def eval_alpha_depth_cols(cols: dict, px: torch.Tensor, py: torch.Tensor, cfg: R
 
 def eval_pair_terms_bwd(cols: dict, px: torch.Tensor, py: torch.Tensor, cfg: RasterConfig) -> dict:
     """The alpha/depth evaluation plus the intermediates the backward chains
-    need (dx, dy, exp(power), 1/denom, raw plane depth, clamp masks)."""
-    dx = px - cols["mean_x"]
-    dy = py - cols["mean_y"]
-    power = -0.5 * (cols["ca"] * dx * dx + cols["cc"] * dy * dy) - cols["cb"] * dx * dy
-    ex = torch.exp(torch.clamp(power, min=POWER_FLOOR, max=0.0))
-    alpha = torch.clamp(cols["op"] * ex, max=cfg.alpha_max)
-    alpha = torch.where(alpha >= cfg.alpha_cut, alpha, 0.0)
+    need (dx, dy, exp(power), 1/denom, raw plane depth, clamp masks); alpha,
+    ex, dx and dy come in the pair dtype, the depth-plane terms in float32."""
+    alpha, ex, dx, dy = _alpha_terms(cols, px - cols["mean_x"], py - cols["mean_y"], cfg)
 
     denom = cols["pa"] * px + cols["pb"] * py + cols["pc"]
     ok = torch.abs(denom) > 1e-8

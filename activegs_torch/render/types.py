@@ -98,6 +98,11 @@ class RasterConfig:
     tile_cull: bool = True  # exact per-(gaussian, tile) ellipse cull
     depth_lo: float = 0.5  # plane-depth clamp, relative to center depth
     depth_hi: float = 2.0
+    # bf16 pair math: the per-(entry, pixel) alpha terms and the in-chunk
+    # transmittance in bfloat16; dx/dy are formed in float32 first, and the
+    # depth-plane chain, the accumulators and every reduction stay float32
+    # (the rounding contract: `render/composite.py`)
+    bf16_pairs: bool = False
 
     @property
     def tile_pixels(self) -> int:

@@ -168,6 +168,29 @@ class BoxRoomSimulator(SimulatorBase):
         self.missing_band = missing_band
         self.has_missing_surface = missing_band is not None
 
+    @classmethod
+    def from_config(cls, cfg, device="cuda"):
+        """The simulator of a loaded mission config: the sensor of
+        `cfg.simulator.sensor`, the scene `cfg.scene.geometry` (default: its
+        `scene_name`, which also names the experiment directory) and, where
+        the scene config gives one, its `missing_band` [z0, z1]."""
+        s = cfg.simulator
+        name = cfg.scene.scene_name
+        geom = cfg.scene.get("geometry", name)
+        if geom not in SCENE_BUILDERS:
+            raise ValueError(f"unknown synthetic scene {geom!r}; have {sorted(SCENE_BUILDERS)}")
+        band = cfg.scene.get("missing_band", None)
+        return cls(
+            resolution=tuple(s.sensor.resolution),
+            fov=tuple(s.sensor.fov),
+            depth_range=tuple(s.sensor.depth_range),
+            depth_noise_co=s.sensor.depth_noise_co,
+            scene=SCENE_BUILDERS[geom](),
+            scene_name=name,
+            missing_band=tuple(band) if band else None,
+            device=device,
+        )
+
     def render_clean(self, c2w: torch.Tensor):
         h, w = self.resolution
         rgb, depth, hit = raycast(c2w, self.intrinsic, self.tri_v, self.tri_mat, h, w)

@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the five hand-written kernels of the port (the three tile-compositor
-kernels of `activegs_torch/render/csrc/` and the two elementwise-rate probes
+Builds the hand-written kernels of the port (the three tile-compositor
+kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
+instance exported by the same source, and the two elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
-together), then drives three paths, each with the launch counters zeroed
+together), then drives four paths, each with the launch counters zeroed
 just before it and read just after:
 
 1. the mapping step (spawn -> keyframe view stats -> train_keyframe -> stats
@@ -47,7 +48,17 @@ just before it and read just after:
    held, and times the plan step's forward work as one launch against one
    launch a candidate. Last, a torch.profiler breakdown of one plan step,
    the per-candidate path against the batched one: host time, device busy
-   time and idle share.
+   time and idle share. Then the bf16 instances (`RasterConfig.bf16_pairs`)
+   on the same inputs: fwd, bwd and stats on the keyframe-5 view and fwd
+   on the plan step's grid, each held against its plain version and timed
+   against its f32 instance in turns;
+4. a mission from the command line's entry point,
+   `activegs_torch.apps.main.main()` with `mapper.raster.bf16_pairs=true`
+   and the port's own YAML configs at full width (512 x 512, capacity
+   2^19, 100 candidates at 128 x 128), for CLI_STEPS steps into the
+   git-ignored `build/cli_mission/`: it checks the losses, that
+   exploration rises, and that the training, post_process and candidate
+   paths launched the bf16 instances, and no f32 instance.
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -111,10 +122,24 @@ EXP_DIV_PER_PAIR = {"composite_fwd": (1, 1), "composite_bwd": (1, 1), "composite
 # (depth with its division, weight, accumulations) is live work only on
 # pairs of 32-pixel rows with some alpha > 0
 FWD_ALPHA_OPS = 17
+# of those, the operations that the bf16 instances do in bf16, counted
+# from their arithmetic (conversions not counted): alpha's 10 (the power's
+# 9, op * exp) in every kernel; fwd 3 more (1 - alpha, the two products of
+# w), bwd 16 more (1 - alpha, t_k, w, w q, 5 of dalpha, dpow and the 6
+# products of dpow), stats 2 more (1 - alpha, alpha * excl)
+BF16_OPS_PER_PAIR = {"composite_fwd": 13, "composite_bwd": 26, "composite_stats": 12}
+# H100 SXM bf16 peak (NVIDIA data sheet, dense, tensor cores); the bf16
+# instances run on the CUDA cores, so their measured-rate bound, at the
+# bf16 probe's rate, is the one to read
+PEAK_BF16_FLOPS = 989e12
+CLI_STEPS = 3
 REPLACES = {
     "composite_fwd": "activegs_tpu/render/composite_pallas.py:179",
     "composite_bwd": "activegs_tpu/render/composite_pallas.py:297",
     "composite_stats": "activegs_tpu/render/composite_pallas.py:522",
+    "composite_fwd_bf16": "activegs_tpu/render/composite_pallas.py:179",
+    "composite_bwd_bf16": "activegs_tpu/render/composite_pallas.py:297",
+    "composite_stats_bf16": "activegs_tpu/render/composite_pallas.py:522",
     "microbench_vpu": "scripts/microbench_vpu.py:37",
     "microbench_bf16": "scripts/microbench_bf16.py:30",
 }
@@ -490,17 +515,20 @@ def probe_phase(dev):
             ratio_f32_bf16=bres["ratio"],
         ),
     }
-    return records, {op: r["tops"] for op, r in vres.items()}
+    return records, {**{op: r["tops"] for op, r in vres.items()}, "bf16": bres["bfloat16"]["tops"]}
 
 
-def rate_ms(pairs: int, ops: int, n_exp: int, n_div: int, tops: dict) -> float:
+def rate_ms(pairs: int, ops: int, n_exp: int, n_div: int, tops: dict, n_bf16: int = 0) -> float:
     """Least time for `ops` operations on each of `pairs` pairs at the
     probe's measured rates: `n_exp` expf at the exp round's rate (exp,
     negate, add: 3 ops), `n_div` divisions at the div round's rate (2 ops),
-    and the rest at the rate of a multiply then an add as the kernels
-    compile them (-fmad=false)."""
-    rest = ops - 3 * n_exp - 2 * n_div
+    `n_bf16` at the bf16 probe's rate (`tops["bf16"]`, packed two elements
+    an instruction), and the rest at the rate of a multiply then an add as
+    the kernels compile them (-fmad=false)."""
+    rest = ops - 3 * n_exp - 2 * n_div - n_bf16
     per_pair = rest / tops["fma"] + 3 * n_exp / tops["exp"] + 2 * n_div / tops["div"]  # ps at Tops/s
+    if n_bf16:
+        per_pair += n_bf16 / tops["bf16"]
     return pairs * per_pair * 1e-12 * 1e3
 
 
@@ -899,7 +927,8 @@ def candidate_phase(mapper, tops: dict):
     over the plan step, and times it there (CUDA events and device time,
     median / mean of TIMED_LAUNCHES) and over one launch per candidate
     (device time, after a warm-up). Returns (the record's candidate keys,
-    {view: the heaviest candidate's arguments})."""
+    {view: the heaviest candidate's arguments}, (the plan step's grid as
+    forward-wrapper arguments, its tiles per view)."""
     from activegs_torch.render import composite as cp
     from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS
 
@@ -976,7 +1005,7 @@ def candidate_phase(mapper, tops: dict):
           + f"); plain {rec['plan_step_tpv_plain_ms']:.2f} ms; bound "
           f"{rec['plan_step_tpv_bound_ms']:.4f} ms data sheet, {rec['plan_step_tpv_measured_rate_bound_ms']:.4f} ms "
           f"at the measured rates, live-work bound {rec['plan_step_tpv_live_work_bound_ms']:.4f} ms over the grid")
-    return rec, {view: heavy}
+    return rec, {view: heavy}, (grid, tpv)
 
 
 def concat_streams(streams):
@@ -1308,6 +1337,158 @@ def plan_step_profile(mapper) -> dict:
     return rec
 
 
+def bf16_bounds(name: str, pairs: int, nbytes: int, tops: dict) -> dict:
+    """The bf16 instance's bounds for `pairs` (entry, pixel) pairs moving
+    `nbytes`: the data sheet's (its f32 operations at the FP32 rate, its
+    bf16 ones at PEAK_BF16_FLOPS) and at the probe's measured rates (its
+    bf16 operations at the packed bf16 probe's)."""
+    n_b = BF16_OPS_PER_PAIR[name]
+    t_ops = pairs * ((OPS_PER_PAIR[name] - n_b) / PEAK_FP32_FLOPS + n_b / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "measured_rate_bound_ms": rate_ms(pairs, OPS_PER_PAIR[name], *EXP_DIV_PER_PAIR[name], tops, n_b)}
+
+
+def bf16_phase(views, grid, tops: dict) -> dict:
+    """The bf16 instances (`RasterConfig.bf16_pairs`) on the f32 checks'
+    inputs: fwd, bwd and stats on the keyframe-5 view (`views`, as
+    `compare` returns them; the backward on the bf16 forward's output) and
+    fwd on the plan step's grid (`grid`, its arguments and tiles per view).
+    Each is held against its plain version at the card tests' tolerances
+    (fwd images 2e-5, depth 1e-4, the same stop rows; bwd each row 2e-3 of
+    its largest; stats importance 1e-5, counts only where a weight meets
+    the threshold within 1e-6), and timed against its f32 instance in
+    turns (f32, bf16, bf16, f32, twice; CUDA events, each a median of
+    TIMED_LAUNCHES calls). Returns {kernel: record keys}."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS
+
+    def as_bf16(args):
+        return (*args[:-1], dataclasses.replace(args[-1], bf16_pairs=True))
+
+    fwd_args = views["composite_fwd"][KF_VIEW]
+    (stats_args,) = views["composite_stats"].values()
+    ent, ts, tl, _, gout, ntx, rcfg = views["composite_bwd"][KF_VIEW]
+    rb = dataclasses.replace(rcfg, bf16_pairs=True)
+    grid_args, tpv = grid
+    o_b = cp.composite_fwd(*as_bf16(fwd_args))
+    cases = {
+        ("composite_fwd", KF_VIEW): (fwd_args, ()),
+        ("composite_fwd", "plan step grid"): (grid_args, (tpv,)),
+        ("composite_bwd", KF_VIEW): ((ent, ts, tl, o_b, gout, ntx, rcfg), ()),
+        ("composite_stats", f"{KF_VIEW}, front only"): (stats_args, ()),
+    }
+    img_rows = [r for r in range(O_TRANS + 1) if r != O_DEPTH]
+    recs = {}
+    for (name, view), (args, extra) in cases.items():
+        k_f32 = lambda a=args, x=extra: getattr(cp, name)(*a, *x)  # noqa: E731
+        k_b16 = lambda a=as_bf16(args), x=extra: getattr(cp, name)(*a, *x)  # noqa: E731
+        p_b16 = lambda a=as_bf16(args), x=extra: getattr(cp, f"{name}_plain")(*a, *x)  # noqa: E731
+        got, want = k_b16(), p_b16()
+        torch.cuda.synchronize()
+        if name == "composite_fwd":
+            e_img = float((got[:, img_rows] - want[:, img_rows]).abs().max())
+            e_dep = float((got[:, O_DEPTH] - want[:, O_DEPTH]).abs().max())
+            err, ok = max(e_img, e_dep), e_img <= 2e-5 and e_dep <= 1e-4 and torch.equal(got[:, O_STOP], want[:, O_STOP])
+            stop = got[:, O_STOP, 0]
+            what = f"image err {e_img:.3g} depth err {e_dep:.3g}, stop rows equal"
+            nbytes = 18 * args[0].shape[1] * 4 + got.numel() * 4
+        elif name == "composite_bwd":
+            rows = [float((got[r] - want[r]).abs().max() / want[r].abs().max().clamp(min=1e-12)) for r in range(18)]
+            err, ok = float((got - want).abs().max()), max(rows) <= 2e-3
+            stop = o_b[:, O_STOP, 0]
+            what = f"per-entry grads max abs err {err:.3g}, worst row {max(rows):.3g} of its largest"
+            nbytes = 18 * ent.shape[1] * 4 + 2 * o_b.numel() * 4 + got.numel() * 4
+        else:
+            (i_k, c_k), (i_p, c_p) = got, want
+            mask, thr = args[3], args[4]
+            _, c_lo = cp.composite_stats_plain(*args[:4], thr + 1e-6, *as_bf16(args)[5:])
+            _, c_hi = cp.composite_stats_plain(*args[:4], thr - 1e-6, *as_bf16(args)[5:])
+            e_imp = scaled_err(i_k, i_p)
+            err = float((i_k - i_p).abs().max())
+            ok = e_imp <= 1e-5 and bool(torch.all((c_k == c_p) | ((c_k >= c_lo) & (c_k <= c_hi))))
+            stop = cp.composite_fwd(*as_bf16(args[:3] + args[5:]))[:, O_STOP, 0]
+            what = f"importance err (rel to max) {e_imp:.3g}, count mismatches {int((c_k != c_p).sum())}"
+            nbytes = 18 * args[0].shape[1] * 4 + mask.numel() * 4 + 2 * args[0].shape[1] * 4
+        del got, want
+        check(ok, f"{name}_bf16 disagrees with its plain version on the {view}")
+        times = {"f32": [], "bf16": []}
+        for _ in range(2):
+            for side in ("f32", "bf16", "bf16", "f32"):
+                times[side].append(time_ms(k_f32 if side == "f32" else k_b16, TIMED_LAUNCHES))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        plain_ms = time_ms(p_b16, PLAIN_RUNS if view == KF_VIEW or name == "composite_stats" else 1)
+        pairs = real_pairs(args[2], stop, rcfg.chunk, rcfg.tile_pixels)
+        bounds = bf16_bounds(name, pairs, nbytes, tops)
+        rec = {"view": view, "max_abs_err": err, "ms": med["bf16"], "f32_ms": med["f32"],
+               "ratio_bf16_f32": med["bf16"] / med["f32"], "turns_ms": times, "plain_ms": plain_ms,
+               "pairs": pairs, **bounds}
+        recs.setdefault(f"{name}_bf16", []).append(rec)
+        print(f"{name}_bf16, {view}: against plain, {what}; {med['bf16']:.4f} ms against f32 {med['f32']:.4f} ms "
+              f"(x{rec['ratio_bf16_f32']:.3f}; CUDA events in turns f32/bf16/bf16/f32, twice, each a median of "
+              f"{TIMED_LAUNCHES}: f32 " + " ".join(f"{t:.4f}" for t in times["f32"]) + ", bf16 "
+              + " ".join(f"{t:.4f}" for t in times["bf16"]) + f"); plain {plain_ms:.2f} ms; bound "
+              f"{bounds['bound_ms']:.4f} ms data sheet ({bounds['bound_by']}), {bounds['measured_rate_bound_ms']:.4f} "
+              f"ms at the probe's measured rates ({pairs} pairs)")
+    return recs
+
+
+def cli_mission_phase() -> dict:
+    """Path 4: `activegs_torch.apps.main.main()` with
+    `mapper.raster.bf16_pairs=true` and the port's own YAML configs at full
+    width, CLI_STEPS steps into `build/cli_mission/`, every kernel's counter
+    zeroed before and read after. Checks the losses, that exploration
+    rises, and that training (bwd), post_process (stats) and the candidate
+    renders (fwd while planning) launched the bf16 instances, and that no
+    f32 instance ran. Returns {kernel: launches}."""
+    from activegs_torch.apps import main as app
+    from activegs_torch.mapping.mapper import IncrementalMapper
+    from activegs_torch.render import composite as cp
+
+    kernels = (*cp.KERNELS, *cp.BF16_KERNELS)
+    step, new_frame = IncrementalMapper.step, IncrementalMapper.get_new_dataframe
+    explored, losses, plan_fwd = [], [], []
+
+    def counted_step(mapper):
+        st = step(mapper)
+        explored.append(1.0 - float(mapper.vm_state.unexplored.float().mean()))
+        losses.append(st["loss"])
+        print(f"cli mission step {st['frame_id']}: loss {st['loss']:.5f} gaussians {st['n_gaussians']} "
+              f"(+{st['n_new']}/-{st['n_pruned']}) explored {explored[-1]:.4f} planning fwd_bf16 launches "
+              f"{plan_fwd[-1]}")
+        return st
+
+    def counted_frame(mapper):
+        n0 = cp.fwd_bf16_kernel.launches
+        out = new_frame(mapper)
+        plan_fwd.append(cp.fwd_bf16_kernel.launches - n0)
+        return out
+
+    argv = ["mapper.raster.bf16_pairs=true", f"max_steps={CLI_STEPS}", "experiment.output_dir=build/cli_mission",
+            "experiment.exp_id=chip_smoke"]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(IncrementalMapper, "step", counted_step), \
+            mock.patch.object(IncrementalMapper, "get_new_dataframe", counted_frame):
+        mapper = app.main(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"cli mission (python -m activegs_torch.apps.main {' '.join(argv)}): {len(losses)} steps in "
+          f"{time.perf_counter() - t0:.2f} s on {mapper.device}, bf16_pairs {mapper.raster_cfg.bf16_pairs}, "
+          f"{mapper.simulator.resolution[0]}x{mapper.simulator.resolution[1]}, capacity {mapper.map_cfg.capacity}, "
+          f"{mapper.planner.cfg.sample_num} candidates; launches {launches}")
+    check(len(losses) == CLI_STEPS and all(math.isfinite(x) for x in losses), f"cli mission losses {losses}")
+    check(explored[-1] > explored[0], f"cli mission: exploration did not rise: {explored}")
+    check(mapper.raster_cfg.bf16_pairs and mapper.device.type == "cuda", "cli mission: not bf16 on the card")
+    check(all(n > 0 for n in plan_fwd[1:]), f"cli mission: planning launched no fwd_bf16 kernel: {plan_fwd}")
+    check(all(launches[k.name] > 0 for k in cp.BF16_KERNELS), f"cli mission: a bf16 instance was not launched: "
+          f"{launches}")
+    check(all(launches[k.name] == 0 for k in cp.KERNELS), f"cli mission: an f32 instance ran under bf16_pairs: "
+          f"{launches}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -1326,8 +1507,8 @@ def main() -> None:
     print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    all_kernels = (*cp.KERNELS, *microbench_vpu.KERNELS, *microbench_bf16.KERNELS)
-    logs = _build.build_all([(k.csrc, k.source) for k in all_kernels])
+    all_kernels = (*cp.KERNELS, *cp.BF16_KERNELS, *microbench_vpu.KERNELS, *microbench_bf16.KERNELS)
+    logs = _build.build_all(list(dict.fromkeys((k.csrc, k.source) for k in all_kernels)))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(logs)} compiled)")
     for name, log in logs.items():
         for func, (regs, spills) in ptxas_usage(log).items():
@@ -1345,9 +1526,13 @@ def main() -> None:
     probes, tops = probe_phase(dev)
     mission_launches, mapper = mission_phase(dev)
     utility_check(mapper)
-    candidate, cand_view = candidate_phase(mapper, tops)
+    candidate, cand_view, plan_grid = candidate_phase(mapper, tops)
     views["composite_fwd"].update(cand_view)
     profile = plan_step_profile(mapper)
+    bf16 = bf16_phase(views, plan_grid, tops)
+    del mapper, plan_grid
+    torch.cuda.empty_cache()
+    cli_launches = cli_mission_phase()
     pairs = kf_batch["kf_batch_pairs"]
     kf_batch.update(kf_batch_bwd_bound_ms=pairs * OPS_PER_PAIR["composite_bwd"] / PEAK_FP32_FLOPS * 1e3,
                     kf_batch_bwd_measured_rate_bound_ms=measured_rate_bound_ms("composite_bwd", pairs, tops))
@@ -1392,6 +1577,22 @@ def main() -> None:
               f"{mission_launches[name]} in the {MISSION_STEPS}-step mission"
               + (f"; live-work bound {extra['live_work_bound_ms']:.4f} ms at the measured rates"
                  if "live_work_bound_ms" in extra else ""))
+    for kern in cp.BF16_KERNELS:
+        recs = bf16[kern.name]  # the keyframe-5 view first
+        kernels.append({
+            "name": kern.name,
+            "route": "cuda",
+            "source": f"activegs_torch/render/csrc/{kern.source}.cu",
+            "replaces": REPLACES[kern.name],
+            "launches": cli_launches[kern.name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **{k: recs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "measured_rate_bound_ms": recs[0]["measured_rate_bound_ms"],
+            "f32_ms": recs[0]["f32_ms"],
+            "views": recs,
+            "launches_by_path": {"cli_mission": cli_launches[kern.name]},
+        })
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
     if args.parent:

@@ -13,7 +13,13 @@ the reference's 64x64 scenes and on a scene made to corner the cull
 - where every alpha of a row is 0, every term is +-0 at every pixel of it;
 - at alpha == alpha_max, where dalpha is masked, the feature terms are not
   zero, so the cull must test alpha > 0 and not the dalpha mask.
+
+Both hold for bf16 pair math too (`bf16`: K = 128, `bf16_pairs`; the terms
+are rebuilt in the rounding contract of `render/composite.py`, and the
+clamp is alpha_max rounded to bf16).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,6 +34,7 @@ from test_torch_gpu import scene_entries, small_surfel_scene
 from test_torch_render import SCENES
 
 CFGS = {"k128": t_like(tt.RasterConfig, CFG), "k8": t_like(tt.RasterConfig, CFG_SMALL_CHUNK)}
+CFGS["bf16"] = dataclasses.replace(CFGS["k128"], bf16_pairs=True)
 CASES = {
     "random": lambda: t_attrs(SCENES["random"]()),
     "opaque": lambda: t_attrs(SCENES["opaque"]()),
@@ -40,14 +47,16 @@ def pair_terms(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg):
     """`composite_bwd_plain`'s replay, chunk by chunk, stopped before its
     pixel sums. Yields per replayed chunk the entry ids (A, n), alpha and
     op * exp(power) (A, n, P), t_k (A, n, P) and the 18 per-pair terms
-    (A, n, 18, P) in the kernel's column order, with the entries' columns."""
+    (A, n, 18, P) in the kernel's column order, with the entries' columns;
+    all as float32 (alpha, op * exp(power) and t_k hold pair-dtype values)."""
     t_n, k = tile_start.shape[0], cfg.chunk
+    dt = pp.pair_dtype(cfg)
     px, py = cp.tile_pixel_coords(t_n, ntx, cfg, entries.device)
     stop = out_fwd[:, tt.O_STOP, 0].to(torch.int64)
-    g_feat = torch.cat([gout[:, 0:6], gout[:, tt.O_CONF : tt.O_CONF + 1]], dim=1)
+    g_feat = torch.cat([gout[:, 0:6], gout[:, tt.O_CONF : tt.O_CONF + 1]], dim=1).to(dt).float()
     g_depth = gout[:, tt.O_DEPTH : tt.O_DEPTH + 1]
     t_final = out_fwd[:, tt.O_TRANS : tt.O_TRANS + 1]
-    gtf = gout[:, tt.O_TRANS : tt.O_TRANS + 1] * t_final
+    gtf = (gout[:, tt.O_TRANS : tt.O_TRANS + 1] * t_final).to(dt)
     t_after = t_final.clone()
     s_q = torch.zeros_like(t_final)
     for r in range(int(stop.max())):
@@ -60,17 +69,20 @@ def pair_terms(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg):
         alpha = terms["alpha"]
         one_m, excl, total = cp._excl_total(alpha)
         t_before = t_after[act] / torch.clamp(total, min=1e-30)
-        t_k = t_before * excl
+        t_k = t_before.to(dt) * excl
         wgt = alpha * t_k
-        q = torch.bmm(cp._feats(e), gfa) + terms["t"] * gda
-        wq = wgt * q
+        q = torch.bmm(cp._feats(e).to(dt).float(), gfa) + terms["t"] * gda
+        q_d = q.to(dt)
+        wq = (wgt * q_d).float()
         tot_wq = torch.sum(wq, dim=1, keepdim=True)
-        suffix = s_q[act] + (tot_wq - torch.cumsum(wq, dim=1))
-        dalpha = t_k * q - (suffix + gtf[act]) * (1.0 / torch.clamp(one_m, min=0.01))
-        dalpha = torch.where((alpha > 0.0) & (alpha < cfg.alpha_max), dalpha, 0.0)
+        suffix = s_q[act].to(dt) + (tot_wq - torch.cumsum(wq, dim=1)).to(dt)
+        dalpha = t_k * q_d - (suffix + gtf[act]) * (1.0 / torch.clamp(one_m, min=0.01))
+        af = alpha.float()
+        dalpha = torch.where((af > 0.0) & (af < pp.effective_alpha_max(cfg)), dalpha, 0.0)
         dx, dy = terms["dx"], terms["dy"]
         dpow = dalpha * alpha
         t1, t2 = dpow * dx, dpow * dy
+        wgt = wgt.float()
         wgd = wgt * gda
         inside = terms["inside"]
         com = torch.where(inside, wgd * terms["inv_denom"], 0.0)
@@ -82,7 +94,8 @@ def pair_terms(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg):
             -(u * pxa), -(u * pya), -u, com, wgt * gf[6],
             torch.where(inside, 0.0, wgd * terms["t"]),
         ]
-        yield idx, alpha, cols["op"] * terms["ex"], t_k, torch.stack(per_pair, dim=2), cols
+        raw = (cols["op"].to(dt) * terms["ex"]).float()
+        yield idx, af, raw, t_k.float(), torch.stack([x.float() for x in per_pair], dim=2), cols
         t_after[act] = t_before
         s_q[act] = s_q[act] + tot_wq
 
@@ -123,7 +136,7 @@ def test_culled_rows_add_nothing(case, cfg_id):
         dead_rows += int(dead.sum())
         live_rows += int((~dead).sum())
         # at alpha_max dalpha is masked (terms 0..5 vanish), w is not
-        top = (alpha == cfg.alpha_max) & (t_k > 0.0)
+        top = (alpha == pp.effective_alpha_max(cfg)) & (t_k > 0.0)
         at_max += int(top.sum())
         assert not terms.permute(0, 1, 3, 2)[top][:, :6].any()
         assert bool((terms.permute(0, 1, 3, 2)[top][:, FEATURE_TERMS] != 0.0).all())

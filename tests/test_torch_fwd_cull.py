@@ -20,7 +20,13 @@ K = 8:
   reference's tolerances, with the same chunks done;
 - on a grid of several views (`tpv`, tiles per view), each view gets the
   bits it gets alone.
+
+Each also holds for bf16 pair math (`bf16`: K = 128, `bf16_pairs`), which
+the emulation follows in the rounding contract of `render/composite.py`:
+a pair whose bf16 alpha is 0 has w = +0 there too.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -34,6 +40,7 @@ from test_torch_gpu import scene_entries, small_surfel_scene, wall_edge_scene
 from test_torch_render import SCENES
 
 CFGS = {"k128": t_like(tt.RasterConfig, CFG), "k8": t_like(tt.RasterConfig, CFG_SMALL_CHUNK)}
+CFGS["bf16"] = dataclasses.replace(CFGS["k128"], bf16_pairs=True)
 CASES = {
     "random": lambda: t_attrs(SCENES["random"]()),
     "opaque": lambda: t_attrs(SCENES["opaque"]()),
@@ -65,18 +72,20 @@ def emulate(entries, tile_start, tile_len, ntx: int, cfg, cull: bool, nsplit: in
         # the kernel walks all K entries of the chunk, pad rows included
         e, _ = cp._chunk(entries, tile_start, tile_len, act, c, k, cut=False)
         alpha, depth = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
-        feats = cp._feats(e)  # (A, K, 7)
+        dt = alpha.dtype  # the pair dtype: float32, or bfloat16 under bf16_pairs
+        feats = cp._feats(e).to(dt).float()  # (A, K, 7)
         a_acc, a_trans = acc[act], trans[act]
+        t_chunk = a_trans.to(dt)
         excl = torch.ones_like(a_trans)
         for j in range(k):
             al = alpha[:, j]
-            w = al * excl * a_trans
+            w = (al * excl.to(dt) * t_chunk).float()
             terms = torch.cat([feats[:, j, :, None] * w[:, None], (w * depth[:, j])[:, None]], dim=1)
             summed = a_acc + terms
             a_acc = torch.where((al > 0.0)[:, None], summed, a_acc) if cull else summed
-            excl = excl * (1.0 - al)
+            excl = excl * (1.0 - al).float()
         acc[act] = a_acc
-        trans[act] = a_trans * excl
+        trans[act] = a_trans * excl.to(dt).float()
         done[act] += 1
     stop = done.to(torch.float32)[:, None].expand(t_n, p)
     out = torch.zeros((t_n, tt.OUT_ROWS, p))

@@ -309,6 +309,26 @@ def test_kernels_refuse_a_tpv_that_does_not_divide_the_grid(cuda):
     torch.cuda.synchronize()
 
 
+# bf16 pair math (`RasterConfig.bf16_pairs`): the kernels' bf16 instances.
+# The kernels and the plain versions follow one rounding contract
+# (`render/composite.py`), so the forward output meets the float32
+# tolerances (2e-5, depth 1e-4, the stop rows equal): nothing it rounds to
+# bf16 follows a float32 sum that the two group apart. In the backward, q,
+# the per-chunk sum of w q and the suffix are float32 sums that the plain
+# version groups otherwise (bmm, sum); where one lies within that
+# difference of a bf16 rounding boundary, its bf16 value is one ulp (2^-8
+# relative) apart and moves that pair's terms by as much, so each gradient
+# row is held within 2e-3 of its largest plain value: half a bf16 ulp of
+# the row's largest value.
+BF16_CFGS = {f"{k}-bf16": dataclasses.replace(c, bf16_pairs=True) for k, c in CFGS.items()}
+
+
+def assert_bwd_rows_close_bf16(d_k, d_p):
+    for r in range(tt.USED_ROWS):
+        assert float((d_k[r] - d_p[r]).abs().max()) <= 2e-3 * float(d_p[r].abs().max()) + 1e-12, r
+    assert not d_k[tt.USED_ROWS :].any()
+
+
 def view_grid(cuda, cfg):
     """Three 64x64 views of unequal tiles (the scene of the kernel tests,
     the small-surfel scene, the wall-edge scene) as one grid: their entry
@@ -331,34 +351,109 @@ def view_grid(cuda, cfg):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cfg_id", list(CFGS))
+@pytest.mark.parametrize("cfg_id", [*CFGS, *BF16_CFGS])
 def test_tpv_kernels_match_plain_and_each_view_alone(cuda, cfg_id):
     """One forward and one backward launch over a grid of three views
     (`tpv`), at K = 128 (the backward kernel's compiled K) and K = 8 (its
-    run-time K): against their plain versions with tpv at the kernels'
-    tolerances, and each view's slice of the outputs and of the entry
-    gradients bitwise equal to that view's own single-view launch."""
-    cfg = CFGS[cfg_id]
+    run-time K), f32 and bf16 (`-bf16`): against their plain versions with
+    tpv at the kernels' tolerances, and each view's slice of the outputs
+    and of the entry gradients bitwise equal to that view's own
+    single-view launch."""
+    cfg = {**CFGS, **BF16_CFGS}[cfg_id]
+    fwd, bwd = (cp.fwd_bf16_kernel, cp.bwd_bf16_kernel) if cfg.bf16_pairs else (cp.fwd_kernel, cp.bwd_kernel)
     grid, ntx, tpv, views, offs = view_grid(cuda, cfg)
-    n0 = (cp.fwd_kernel.launches, cp.bwd_kernel.launches)
+    n0 = (fwd.launches, bwd.launches)
     o_k = cp.composite_fwd(*grid, ntx, cfg, tpv)
     g = torch.randn(o_k.shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
     g[:, tt.O_TRANS + 1 :] = 0.0
     d_k = cp.composite_bwd(*grid, o_k, g, ntx, cfg, tpv)
     torch.cuda.synchronize()
-    assert (cp.fwd_kernel.launches, cp.bwd_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+    assert (fwd.launches, bwd.launches) == (n0[0] + 1, n0[1] + 1)
     o_p = cp.composite_fwd_plain(*grid, ntx, cfg, tpv)
     rows = [r for r in range(tt.O_TRANS + 1) if r != tt.O_DEPTH]
     torch.testing.assert_close(o_k[:, rows], o_p[:, rows], rtol=0, atol=2e-5)
     torch.testing.assert_close(o_k[:, tt.O_DEPTH], o_p[:, tt.O_DEPTH], rtol=0, atol=1e-4)
     assert torch.equal(o_k[:, tt.O_STOP :], o_p[:, tt.O_STOP :])
-    assert_bwd_rows_close(d_k, cp.composite_bwd_plain(*grid, o_k, g, ntx, cfg, tpv))
+    d_p = cp.composite_bwd_plain(*grid, o_k, g, ntx, cfg, tpv)
+    (assert_bwd_rows_close_bf16 if cfg.bf16_pairs else assert_bwd_rows_close)(d_k, d_p)
     for i, args in enumerate(views):
         t = slice(i * tpv, (i + 1) * tpv)
         alone = cp.composite_fwd(*args, ntx, cfg)
         assert torch.equal(o_k[t].view(torch.int32), alone.view(torch.int32)), i
         d_alone = cp.composite_bwd(*args, alone, g[t].contiguous(), ntx, cfg)
         assert torch.equal(d_k[:, offs[i] : offs[i + 1]].view(torch.int32), d_alone.view(torch.int32)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_id", list(BF16_CFGS))
+@pytest.mark.parametrize("scene_id", list(FWD_SCENES))
+def test_bf16_kernels_match_plain(cuda, scene_id, cfg_id):
+    """The three bf16 instances against their plain versions on the
+    small-surfel scene (64x64, most rows culled, alpha at the bf16 clamp
+    and at the cut) and the wall-edge scene (128x128, tiles stopping after
+    one chunk): tolerances above, importance 1e-5 relative, counts at most
+    2 apart; five launches of each bitwise equal; the f32 kernels not
+    launched."""
+    cfg = BF16_CFGS[cfg_id]
+    make, shape = FWD_SCENES[scene_id]
+    args, ntx = scene_entries(make(cuda), cfg, cuda, shape)
+    n0 = [k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)]
+    outs = [cp.composite_fwd(*args, ntx, cfg) for _ in range(5)]
+    o_k = outs[0]
+    g = torch.randn(o_k.shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g[:, tt.O_TRANS + 1 :] = 0.0
+    grads = [cp.composite_bwd(*args, o_k, g, ntx, cfg) for _ in range(5)]
+    m = (torch.rand(len(args[1]), cfg.tile_pixels, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda) > 0.3).float()
+    stats = [cp.composite_stats(*args, m, 0.03, ntx, cfg) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert [k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)] == n0[:3] + [n + 5 for n in n0[3:]]
+    o_p = cp.composite_fwd_plain(*args, ntx, cfg)
+    rows = [r for r in range(tt.O_TRANS + 1) if r != tt.O_DEPTH]
+    torch.testing.assert_close(o_k[:, rows], o_p[:, rows], rtol=0, atol=2e-5)
+    torch.testing.assert_close(o_k[:, tt.O_DEPTH], o_p[:, tt.O_DEPTH], rtol=0, atol=1e-4)
+    assert torch.equal(o_k[:, tt.O_STOP :], o_p[:, tt.O_STOP :])
+    assert_bwd_rows_close_bf16(grads[0], cp.composite_bwd_plain(*args, o_k, g, ntx, cfg))
+    i_p, c_p = cp.composite_stats_plain(*args, m, 0.03, ntx, cfg)
+    assert float((stats[0][0] - i_p).abs().max()) <= 1e-5 * float(i_p.abs().max())
+    assert int((stats[0][1] != c_p).sum()) <= 2
+    assert all(torch.equal(outs[0].view(torch.int32), o.view(torch.int32)) for o in outs[1:])
+    assert all(torch.equal(grads[0].view(torch.int32), d.view(torch.int32)) for d in grads[1:])
+    assert all(torch.equal(stats[0][0], i) and torch.equal(stats[0][1], c) for i, c in stats[1:])
+    # bf16 rounds where float32 does not: the outputs differ from the f32 kernel's
+    f32 = cp.composite_fwd(*args, ntx, dataclasses.replace(cfg, bf16_pairs=False))
+    assert not torch.equal(o_k[:, rows], f32[:, rows])
+    stop = o_k[:, tt.O_STOP, 0]
+    assert 0 < cp.live_warp_rows(*args, stop, ntx, cfg)[0]
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_what_the_f32_kernels_refuse(cuda):
+    cfg = BF16_CFGS["k128-bf16"]
+    ent = torch.zeros((tt.PARAM_DIM, 768), device=cuda)
+    ts = torch.zeros(6, dtype=torch.int32, device=cuda)
+    for bad in (ent.double(), ent[:, :200], ent.t().contiguous().t(), ent[:, :255]):
+        with pytest.raises(ValueError):
+            cp.composite_fwd(bad, ts, ts, 1, cfg)
+    with pytest.raises(ValueError):
+        cp.composite_stats(ent, ts, ts, torch.zeros((6, 100), device=cuda), 0.03, 1, cfg)
+    out = torch.zeros((6, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
+    order = torch.empty(6, dtype=torch.int32, device=cuda)
+    for bad in (3, 5, 0):  # cluster sizes that do not split the tile
+        with pytest.raises(RuntimeError, match="composite_fwd_bf16: CUDA error .*invalid argument"):
+            cp.fwd_bf16_kernel.launch(ent.data_ptr(), 768, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 6, 6, bad,
+                                      *cp._tail(1, cfg, cuda))
+    for bad in (4, 0, 12):  # tiles per view that do not divide the grid
+        with pytest.raises(ValueError, match="does not divide"):
+            cp.composite_bwd(ent, ts, ts, out, out, 1, cfg, bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cp.fwd_bf16_kernel.launch(ent.data_ptr(), 768, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 6, bad, 4,
+                                      *cp._tail(1, cfg, cuda))
+        with pytest.raises(RuntimeError, match="composite_bwd_bf16: CUDA error .*invalid argument"):
+            cp.bwd_bf16_kernel.launch(ent.data_ptr(), 768, ts.data_ptr(), ts.data_ptr(), out.data_ptr(),
+                                      out.data_ptr(), ent.data_ptr(), order.data_ptr(), 6, bad,
+                                      *cp._tail(1, cfg, cuda))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
