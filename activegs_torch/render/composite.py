@@ -77,7 +77,7 @@ _TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
 # count, the forward kernel then the cluster size
 _FWD_ARGS = [_P, _LL, _P, _P, _P, _I, _I, _I] + _TAIL
 _BWD_ARGS = [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I] + _TAIL
-_STATS_ARGS = [_P, _LL, _P, _P, _P, _F, _P, _P, _I] + _TAIL
+_STATS_ARGS = [_P, _LL, _P, _P, _P, _F, _P, _P, _P, _I] + _TAIL
 fwd_kernel = CudaKernel("composite_fwd", _FWD_ARGS)
 bwd_kernel = CudaKernel("composite_bwd", _BWD_ARGS)
 stats_kernel = CudaKernel("composite_stats", _STATS_ARGS)
@@ -327,28 +327,66 @@ def live_warp_rows(
     return live, real * cfg.tile_pixels // 32
 
 
-def composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres: float, ntx: int, cfg: RasterConfig):
+def _stats_chunks(entries, tile_start, tile_len, mask, ntx: int, cfg: RasterConfig, cut: bool = True):
+    """The stats replay, chunk by chunk, with the forward pass's tile-wide
+    stop: yields the tiles (A,) that composite each chunk, the chunk's
+    entry indices (A, n) and the masked weights w * mask of its pairs
+    (A, n, P), float32. With `cut`, n is the most real entries any of
+    these tiles has in the chunk, else K."""
     t_n, k = tile_start.shape[0], cfg.chunk
     dev = entries.device
     px, py = tile_pixel_coords(t_n, ntx, cfg, dev)
     nch = (tile_len.to(torch.int64) + k - 1) // k
     trans = torch.ones((t_n, 1, cfg.tile_pixels), device=dev)
-    imp = torch.zeros((1, entries.shape[1]), device=dev)
-    cnt = torch.zeros((1, entries.shape[1]), device=dev)
     m = mask[:, None, :]
     for c in range(int(nch.max()) if t_n else 0):
         act = _live_tiles(c, nch, trans, cfg)
         if act.numel() == 0:
             break
-        # a threshold <= 0 counts the zero weights of pad entries too
-        e, idx = _chunk(entries, tile_start, tile_len, act, c, k, cut=weight_thres > 0)
+        e, idx = _chunk(entries, tile_start, tile_len, act, c, k, cut=cut)
         alpha, _ = pp.eval_alpha_depth_cols(pp.entry_cols(e), px[act], py[act], cfg)
         _, excl, total = _excl_total(alpha)
-        wm = (alpha * excl).float() * trans[act] * m[act]
+        yield act, idx, (alpha * excl).float() * trans[act] * m[act]
+        trans[act] = trans[act] * total
+
+
+def composite_stats_plain(entries, tile_start, tile_len, mask, weight_thres: float, ntx: int, cfg: RasterConfig):
+    imp = torch.zeros((1, entries.shape[1]), device=entries.device)
+    cnt = torch.zeros((1, entries.shape[1]), device=entries.device)
+    # a threshold <= 0 counts the zero weights of pad entries too
+    for _, idx, wm in _stats_chunks(entries, tile_start, tile_len, mask, ntx, cfg, cut=weight_thres > 0):
         imp[0, idx.reshape(-1)] = wm.sum(-1).reshape(-1)
         cnt[0, idx.reshape(-1)] = (wm >= weight_thres).to(torch.float32).sum(-1).reshape(-1)
-        trans[act] = trans[act] * total
     return imp, cnt
+
+
+STATS_ROUND = 32  # entries of a round of the stats kernel's warp sums
+
+
+def stats_live_rows(entries, tile_start, tile_len, mask, ntx: int, cfg: RasterConfig) -> dict:
+    """What the stats kernel's replay reaches and what its warp cull keeps,
+    in plain PyTorch. Returns {"reached": the real entries each tile's
+    replay reaches (T,), min(tile_len, chunks done * K); "live_pairs",
+    "pairs": the (entry, 32-pixel row) pairs of those entries with some
+    w * mask != 0, and all of them; "live_rounds", "rounds": the (round,
+    32-pixel row) pairs with some w * mask != 0, and all of them, where a
+    chunk's real entries go in rounds of STATS_ROUND}. The kernel culls a
+    (round, row) whose sums are all +-0: the same pairs where w * mask >= 0."""
+    t_n, k, p = tile_start.shape[0], cfg.chunk, cfg.tile_pixels
+    nround = -(-k // STATS_ROUND)
+    done = torch.zeros(t_n, dtype=torch.int64, device=entries.device)
+    live_pairs = live_rounds = rounds = 0
+    for act, idx, wm in _stats_chunks(entries, tile_start, tile_len, mask, ntx, cfg, cut=False):
+        done[act] += 1
+        nz = (wm != 0.0).reshape(len(act), k, p // 32, 32).any(-1)  # (A, K, rows); pad entries never
+        live_pairs += int(nz.sum())
+        nz = torch.cat([nz, nz.new_zeros((len(act), nround * STATS_ROUND - k, p // 32))], dim=1)
+        live_rounds += int(nz.reshape(len(act), nround, STATS_ROUND, -1).any(2).sum())
+        real = (idx - tile_start[act, None] < tile_len[act, None]).sum(1)
+        rounds += int((-(-real // STATS_ROUND)).sum()) * (p // 32)
+    reached = torch.minimum(tile_len.to(torch.int64), done * k)
+    return {"reached": reached, "live_pairs": live_pairs, "pairs": int(reached.sum()) * (p // 32),
+            "live_rounds": live_rounds, "rounds": rounds}
 
 
 # --------------------------------------------------------------------------
@@ -407,9 +445,11 @@ def composite_stats(entries, tile_start, tile_len, mask, weight_thres: float, nt
     # zeros: the kernel writes only the chunks its replay reaches
     imp = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
     cnt = torch.zeros((1, e), dtype=torch.float32, device=entries.device)
+    # scratch: the order in which the kernel's blocks take the tiles
+    order = torch.empty(len(tile_start), dtype=torch.int32, device=entries.device)
     (stats_bf16_kernel if cfg.bf16_pairs else stats_kernel).launch(
-        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), mask.data_ptr(),
-        weight_thres, imp.data_ptr(), cnt.data_ptr(), len(tile_start), *_tail(ntx, cfg, entries.device),
+        entries.data_ptr(), e, tile_start.data_ptr(), tile_len.data_ptr(), mask.data_ptr(), weight_thres,
+        imp.data_ptr(), cnt.data_ptr(), order.data_ptr(), len(tile_start), *_tail(ntx, cfg, entries.device),
     )
     return imp, cnt
 

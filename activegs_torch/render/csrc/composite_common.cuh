@@ -3,11 +3,12 @@
 //
 // Layout: `entries` is (PARAM_DIM = 24, E) row-major float32; each tile's
 // entries form a depth-sorted segment [tile_start, tile_start + tile_len)
-// starting at a multiple of K. A block of P = tile_h * tile_w threads
-// renders one tile, one thread per pixel. Each K-entry chunk's 18 used
-// parameter rows are staged in shared memory as sh[row * K + k]; the rows
-// are contiguous along E, so the loads coalesce, and every thread then reads
-// the same entry at once (a broadcast, no bank conflicts).
+// starting at a multiple of K. One thread renders one pixel of a tile of
+// P = tile_h * tile_w pixels (`tile_of`); the forward kernel
+// splits a tile's pixel rows over a thread-block cluster, the backward and
+// stats kernels run one block per tile. Each kernel stages a K-entry
+// chunk's parameter rows in shared memory entry by entry, and every thread
+// then reads the same entry at once (a broadcast).
 //
 // Arithmetic is strict float32 (no fast-math), with IEEE division, in the
 // op order of activegs_torch/render/preprocess.py::eval_alpha_depth_cols.
@@ -42,29 +43,20 @@ struct Tile {
   float px, py;    // this thread's pixel center
 };
 
+// Tile `tile`'s segment and the center of its pixel `pix` (0 .. P-1,
+// row-major in the tile). The grid holds views of `tpv` tiles each, one
+// after another (a single view: tpv = the tile count), and the pixel lies
+// in tile tile % tpv of its view's ntx-wide tile grid.
 __device__ __forceinline__ Tile tile_of(const int* __restrict__ tile_start,
-                                        const int* __restrict__ tile_len, int ntx,
-                                        int tile_w, int tile_h, int kchunk) {
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
+                                              const int* __restrict__ tile_len, int tile, int pix,
+                                              int tpv, int ntx, int tile_w, int tile_h, int kchunk) {
   Tile tl;
-  tl.start = tile_start[t];
-  tl.nch = (tile_len[t] + kchunk - 1) / kchunk;
-  tl.px = (float)((t % ntx) * tile_w + p % tile_w) + 0.5f;
-  tl.py = (float)((t / ntx) * tile_h + p / tile_w) + 0.5f;
+  tl.start = tile_start[tile];
+  tl.nch = (tile_len[tile] + kchunk - 1) / kchunk;
+  const int vt = tile % tpv;
+  tl.px = (float)((vt % ntx) * tile_w + pix % tile_w) + 0.5f;
+  tl.py = (float)((vt / ntx) * tile_h + pix / tile_w) + 0.5f;
   return tl;
-}
-
-// Stage rows 0..17 of chunk `chunk` into sh[row * K + k]; the caller
-// synchronizes before and after.
-__device__ __forceinline__ void load_chunk(float* sh, const float* __restrict__ entries,
-                                           long long e_total, int start, int chunk,
-                                           int kchunk) {
-  const float* src = entries + start + (long long)chunk * kchunk;
-  for (int idx = threadIdx.x; idx < kUsedRows * kchunk; idx += blockDim.x) {
-    const int r = idx / kchunk;
-    sh[idx] = src[(long long)r * e_total + (idx - r * kchunk)];
-  }
 }
 
 // alpha = min(alpha_max, op * exp(clamp(power, -80, 0))), zeroed below alpha_cut.
@@ -104,14 +96,6 @@ __device__ __forceinline__ PlaneDepth eval_depth(const float* sh, int kchunk, in
   return d;
 }
 
-// sum of the 7 composited features (rgb, normal, confidence) times g[7]
-__device__ __forceinline__ float feat_dot(const float* sh, int kchunk, int k, const float* g) {
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) s += sh[(kColR + c) * kchunk + k] * g[c];
-  return s + sh[kConf * kchunk + k] * g[6];
-}
-
 // ---- bf16 pair math ----
 // Pair values in bf16 are carried as floats that hold bf16 values; each
 // rounded step is a bf16 intrinsic (__hmul, __hadd, __hsub: one rounding,
@@ -141,12 +125,6 @@ __device__ __forceinline__ float alpha_bf16(float ca, float cb, float cc, float 
   *ex = to_f32(e);
   const float a = fminf(to_f32(__hmul(to_bf16(op), e)), c.alpha_max);
   return a >= c.alpha_cut ? a : 0.0f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 }  // namespace composite

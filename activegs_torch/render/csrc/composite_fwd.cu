@@ -186,23 +186,6 @@ __device__ __forceinline__ void composite_entries(const float4* sh, int k0, cons
   }
 }
 
-// Tile `tile`'s segment and the center of its pixel `pix` (0 .. P-1,
-// row-major in the tile): `tile_of` for a thread whose pixel is not
-// threadIdx.x. The grid holds views of `tpv` tiles each, one after another
-// (a single view: tpv = the tile count), and the pixel lies in tile
-// tile % tpv of its view's ntx-wide tile grid.
-__device__ __forceinline__ Tile split_tile_of(const int* __restrict__ tile_start,
-                                              const int* __restrict__ tile_len, int tile, int pix,
-                                              int tpv, int ntx, int tile_w, int tile_h, int kchunk) {
-  Tile tl;
-  tl.start = tile_start[tile];
-  tl.nch = (tile_len[tile] + kchunk - 1) / kchunk;
-  const int vt = tile % tpv;
-  tl.px = (float)((vt % ntx) * tile_w + pix % tile_w) + 0.5f;
-  tl.py = (float)((vt / ntx) * tile_h + pix / tile_w) + 0.5f;
-  return tl;
-}
-
 // BF16: the bf16 pair-math instance (composite_entries); T across chunks
 // stays float32, times each chunk's total product rounded to bf16.
 template <bool BF16>
@@ -217,7 +200,7 @@ fwd_kernel(const float* __restrict__ entries, long long e_total,
   const int tile = blockIdx.x / nsplit;
   const int npix = tile_w * tile_h;
   const int p = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
-  const Tile tl = split_tile_of(tile_start, tile_len, tile, p, tpv, ntx, tile_w, tile_h, kchunk);
+  const Tile tl = tile_of(tile_start, tile_len, tile, p, tpv, ntx, tile_w, tile_h, kchunk);
   const int lane = threadIdx.x & 31;
 
   float trans = 1.0f;

@@ -131,6 +131,41 @@ def loop_opcodes(text: str) -> list[str]:
     return ops
 
 
+def exp_loop_opcodes(text: str) -> list[str]:
+    """Opcodes of the innermost loop of one kernel's SASS that evaluates an
+    exponential (holds MUFU.EX2): the instructions from the target of a
+    backward branch to that branch, the shortest such stretch."""
+    insns, labels, pending = [], {}, []
+    for line in text.splitlines():
+        lab = _LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _INSN.search(line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for p in pending:
+            labels[p] = addr
+        pending = []
+        words = m.group(2).split()
+        insns.append((addr, m.group(2), words[1] if words[0].startswith("@") else words[0]))
+    best = None
+    for addr, body, _ in insns:
+        t = _TARGET.search(body)
+        if not t:
+            continue
+        tgt = t.group(1)
+        tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+        if tgt is None or tgt > addr or (best is not None and addr - tgt >= best[1] - best[0]):
+            continue
+        if any(op == "MUFU.EX2" for a, _, op in insns if tgt <= a <= addr):
+            best = (tgt, addr)
+    if best is None:
+        raise ValueError("no loop with an exponential in this kernel's SASS")
+    return [op for a, _, op in insns if best[0] <= a <= best[1]]
+
+
 def per_round(ops: list[str], unroll: int) -> dict[str, float]:
     """Instructions per round of each opcode in a loop that holds `unroll`
     rounds."""

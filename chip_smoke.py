@@ -40,7 +40,10 @@ just before it and read just after:
    once per group of candidates (all 100 in one group at these sizes), and
    holds one plan step's candidate utilities through the kernel against
    those through the plain forward version, and says whether they are
-   bitwise those of the per-candidate path. Then it builds the entry
+   bitwise those of the per-candidate path. It holds the stats kernel (f32
+   and bf16) against its plain version on a second view, post_process's
+   call on the mission's final map (latest keyframe, front only, its depth
+   mask). Then it builds the entry
    streams of that plan step's candidates, holds the forward kernel
    against its plain version on the candidate with the most reached
    (entry, pixel) pairs and times it there, holds one forward and one
@@ -63,13 +66,20 @@ just before it and read just after:
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
 (a plain PyTorch pass on the same inputs) and the real entries each tile's
-composite reaches. With `--parent DIR` (a `git archive` of the parent
-commit in a git-ignored directory) it then imports DIR's compositor beside
-this one, finds which of the three compositor kernels' sources differ
-(by the digest their libraries are named by), and for each that does:
-calls both wrappers on that kernel's views and checks their outputs
-bitwise equal, prints what each build gives and each call's device time
-by kernel, and times the two in turns (parent, change, change, parent, 4
+composite reaches; for both stats views, the share of (entry, 32-pixel
+row) pairs with some w * mask != 0, the share of (round, row) partials the
+stats kernel keeps, and the real entries reached per tile (mean, max).
+Each kernel with an occupancy query prints its build (`composite_fwd
+build`, `composite_stats build`, `composite_stats_bf16 build`), and the
+stats launch its two kernels' device times on both views. With `--parent
+DIR` (a `git archive` of the parent commit in a git-ignored directory) it
+then imports DIR's compositor beside this one, finds which of the three
+compositor kernels' sources differ (by the digest their libraries are
+named by), and for each that does (the stats kernel's bf16 instance
+beside its f32 one): calls both wrappers on that kernel's views and
+checks their outputs bitwise equal, prints what each build gives (and the
+innermost loop with an expf in its SASS) and each call's device time by
+kernel, and times the two in turns (parent, change, change, parent, 4
 times) in this process.
 
 It prints a `kernels` JSON line, the card's name and power limit, and ends
@@ -264,6 +274,71 @@ def cull_line(kernels: str, view: str, fwd_args, stop: torch.Tensor) -> tuple[in
     return live, rows
 
 
+def stats_view(state, buf, cfg, rcfg):
+    """The stats wrapper's arguments for post_process's call on the latest
+    keyframe of `buf` with the map `state` (sliced to its bucket): the
+    front-only entry stream, binned at its own budget, and the render mask
+    depth > 0, at the threshold render_stats uses."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.render import binning, renderer
+    from activegs_torch.render import preprocess as pp
+    from activegs_torch.render.types import Camera
+
+    dev = state.means.device
+    attrs = gm.attrs_of(gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity)), cfg)
+    _, depth, ext, intr = kf.decode_frames(buf, torch.tensor([buf.count - 1], device=dev))
+    shape = tuple(buf.rgb.shape[-2:])
+    _, _, ntx, _ = binning.bin_tile_dims(shape, rcfg)
+    p2s, _, dzs, ivs = pp.preprocess(attrs, Camera(ext[0], intr[0]), shape, rcfg, front_only=True)
+    bs = binning.bin_entries(p2s, dzs, ivs, shape, rcfg, trainer.pick_entry_bucket(int(binning.entry_count(
+        p2s, ivs, shape, rcfg))))
+    mask = renderer.image_to_tiles((depth[0, 0] > 0.0).to(torch.float32), shape, rcfg)
+    return renderer.gather_entries(p2s, bs.gid), bs.tile_start, bs.tile_len, mask, 0.03, ntx, rcfg
+
+
+def check_stats(view: str, args) -> float:
+    """Holds the stats kernel (the instance `args`' config selects) against
+    its plain version on one view: importance within 1e-5 of its largest,
+    counts equal except where some w * mask lies within 1e-6 of the
+    threshold. Returns the importance's max abs error."""
+    from activegs_torch.render import composite as cp
+
+    i_k, c_k = cp.composite_stats(*args)
+    i_p, c_p = cp.composite_stats_plain(*args)
+    thr = args[4]
+    _, c_lo = cp.composite_stats_plain(*args[:4], thr + 1e-6, *args[5:])
+    _, c_hi = cp.composite_stats_plain(*args[:4], thr - 1e-6, *args[5:])
+    e_imp = scaled_err(i_k, i_p)
+    cnt_ok = bool(torch.all((c_k == c_p) | ((c_k >= c_lo) & (c_k <= c_hi))))
+    name = "stats_bf16" if args[-1].bf16_pairs else "stats"
+    print(f"{name}, {view}: E {args[0].shape[1]} importance err (rel to max) {e_imp:.3g}, "
+          f"count mismatches {int((c_k != c_p).sum())} (at threshold {int((c_lo != c_hi).sum())})")
+    check(e_imp <= 1e-5 and cnt_ok, f"{name} kernel disagrees with its plain version on the {view}")
+    return float((i_k - i_p).abs().max())
+
+
+def stats_cull_line(view: str, args) -> dict:
+    """Prints what the stats kernel's replay reaches on a view and what its
+    warp cull keeps (`composite.stats_live_rows`, plain PyTorch on the same
+    inputs). Returns the shares and the reached entries per tile."""
+    from activegs_torch.render import composite as cp
+
+    ent, tile_start, tile_len, mask, _, ntx, rcfg = args
+    rows = cp.stats_live_rows(ent, tile_start, tile_len, mask, ntx, rcfg)
+    reached = rows["reached"].float()
+    rec = {"live_row_share": rows["live_pairs"] / rows["pairs"], "live_round_share": rows["live_rounds"] / rows["rounds"],
+           "reached_mean": float(reached.mean()), "reached_max": int(reached.max())}
+    print(f"cull (stats kernel), {view}: {rows['live_pairs']} of {rows['pairs']} (entry, 32-pixel row) pairs of the "
+          f"real entries in the reached chunks have some w * mask != 0 (share {rec['live_row_share']:.4f}); the "
+          f"kernel keeps {rows['live_rounds']} of {rows['rounds']} (round of {cp.STATS_ROUND} entries, 32-pixel row) "
+          f"partials (share {rec['live_round_share']:.4f}; plain PyTorch on the same inputs); real entries reached "
+          f"per tile: mean {rec['reached_mean']:.1f}, max {rec['reached_max']} (max/mean "
+          f"{rec['reached_max'] / rec['reached_mean']:.2f}, {len(tile_len)} tiles)")
+    return rec
+
+
 def compare(state, buf, cfg, rcfg):
     """Path 1, checks: kernels against plain versions at the main path's shapes.
     Returns ({kernel: max abs error}, {kernel: (kernel call, plain call,
@@ -282,7 +357,7 @@ def compare(state, buf, cfg, rcfg):
     sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
     attrs = gm.attrs_of(sub, cfg)
     latest = buf.count - 1
-    _, depth, ext, intr = kf.decode_frames(buf, torch.tensor([latest], device=dev))
+    _, _, ext, intr = kf.decode_frames(buf, torch.tensor([latest], device=dev))
     cam = Camera(ext[0], intr[0])
     shape = (RES, RES)
     _, _, ntx, _ = binning.bin_tile_dims(shape, rcfg)
@@ -336,24 +411,10 @@ def compare(state, buf, cfg, rcfg):
     cull = cull_line("fwd and bwd kernels", KF_VIEW, fwd_args, o_k[:, O_STOP, 0])
 
     # stats, on post_process's front-only stream with its depth mask
-    p2s, _, dzs, ivs = pp.preprocess(attrs, cam, shape, rcfg, front_only=True)
-    bs_budget = trainer.pick_entry_bucket(int(binning.entry_count(p2s, ivs, shape, rcfg)))
-    bs = binning.bin_entries(p2s, dzs, ivs, shape, rcfg, bs_budget)
-    ent_s = renderer.gather_entries(p2s, bs.gid)
-    mask = renderer.image_to_tiles((depth[0, 0] > 0.0).to(torch.float32), shape, rcfg)
-    thr = 0.03
-    i_k, c_k = cp.composite_stats(ent_s, bs.tile_start, bs.tile_len, mask, thr, ntx, rcfg)
-    i_p, c_p = cp.composite_stats_plain(ent_s, bs.tile_start, bs.tile_len, mask, thr, ntx, rcfg)
-    # counts may differ only where some w * mask lies within 1e-6 of thr
-    _, c_lo = cp.composite_stats_plain(ent_s, bs.tile_start, bs.tile_len, mask, thr + 1e-6, ntx, rcfg)
-    _, c_hi = cp.composite_stats_plain(ent_s, bs.tile_start, bs.tile_len, mask, thr - 1e-6, ntx, rcfg)
-    e_imp = scaled_err(i_k, i_p)
-    cnt_ok = bool(torch.all((c_k == c_p) | ((c_k >= c_lo) & (c_k <= c_hi))))
-    print(f"stats: E {ent_s.shape[1]} importance err (rel to max) {e_imp:.3g}, "
-          f"count mismatches {int((c_k != c_p).sum())} (at threshold {int((c_lo != c_hi).sum())})")
-    check(e_imp <= 1e-5 and cnt_ok, "stats kernel disagrees with its plain version")
-    res["composite_stats"] = float((i_k - i_p).abs().max())
-    s_stop = cp.composite_fwd(ent_s, bs.tile_start, bs.tile_len, ntx, rcfg)[:, O_STOP, 0]
+    stats_args = stats_view(state, buf, cfg, rcfg)
+    ent_s, s_start, s_len = stats_args[:3]
+    res["composite_stats"] = check_stats(f"{KF_VIEW}, front only", stats_args)
+    s_stop = cp.composite_fwd(ent_s, s_start, s_len, ntx, rcfg)[:, O_STOP, 0]
 
     # one whole batch_loss value and its grads, kernel path against plain
     ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(SEED))
@@ -400,16 +461,16 @@ def compare(state, buf, cfg, rcfg):
             18 * ent.shape[1] * 4 + 2 * o_k.numel() * 4 + d_k.numel() * 4,
         ),
         "composite_stats": (
-            lambda: cp.composite_stats(ent_s, bs.tile_start, bs.tile_len, mask, thr, ntx, rcfg),
-            lambda: cp.composite_stats_plain(ent_s, bs.tile_start, bs.tile_len, mask, thr, ntx, rcfg),
-            real_pairs(bs.tile_len, s_stop, k_chunk, p_tile),
-            18 * ent_s.shape[1] * 4 + mask.numel() * 4 + 2 * ent_s.shape[1] * 4,
+            lambda: cp.composite_stats(*stats_args),
+            lambda: cp.composite_stats_plain(*stats_args),
+            real_pairs(s_len, s_stop, k_chunk, p_tile),
+            18 * ent_s.shape[1] * 4 + stats_args[3].numel() * 4 + 2 * ent_s.shape[1] * 4,
         ),
     }
     views = {
         "composite_fwd": {KF_VIEW: fwd_args},
         "composite_bwd": {KF_VIEW: (ent, b.tile_start, b.tile_len, o_k, gout, ntx, rcfg)},
-        "composite_stats": {f"{KF_VIEW}, front only": (ent_s, bs.tile_start, bs.tile_len, mask, thr, ntx, rcfg)},
+        "composite_stats": {f"{KF_VIEW}, front only": stats_args},
     }
     return res, inputs, cull, views
 
@@ -573,13 +634,14 @@ def import_composite(root: Path, package: str):
 
 
 def kernel_build(comp, name: str, rcfg) -> str:
-    """What the build of compositor kernel `name` that `comp` (a composite
-    module) launches gives at these shapes: from the library's own
-    occupancy query where it exports one (the forward kernel: registers and
-    local bytes a thread, shared bytes a block, clusters the GPU holds at
-    once at the launched cluster size; the backward: the same with blocks
-    per SM), else registers and spills from its ptxas log."""
-    kern = {k.source: k for k in comp.KERNELS}[name]
+    """What the build of compositor kernel `name` (a kernel or its bf16
+    instance) that `comp` (a composite module) launches gives at these
+    shapes: from the library's own occupancy query where it exports one
+    (the forward kernel: registers and local bytes a thread, shared bytes a
+    block, clusters the GPU holds at once at the launched cluster size; the
+    backward and stats kernels: the same with blocks per SM), else
+    registers and spills from its ptxas log."""
+    kern = {k.name: k for k in (*comp.KERNELS, *comp.BF16_KERNELS)}[name]
     lib = ctypes.CDLL(str(kern.library))
     if not hasattr(lib, f"{name}_occupancy"):
         usage = ptxas_usage(kern.library.with_suffix(".log").read_text())
@@ -601,6 +663,29 @@ def kernel_build(comp, name: str, rcfg) -> str:
         return head + (f"{n} clusters of {c} blocks of {rcfg.tile_pixels // c} threads at once on the GPU, "
                        f"{n * c / sms:.2f} blocks per SM on {sms} SMs (the library's CUDA occupancy query)")
     return head + f"{n} blocks of {rcfg.tile_pixels} threads per SM (the library's CUDA occupancy query)"
+
+
+def exp_loops(comp, name: str) -> str:
+    """The innermost loop that evaluates expf in each kernel function of
+    the library of compositor kernel `name` that `comp` (a composite
+    module) launches, from its SASS (`probe.exp_loop_opcodes`): its
+    instructions, the expf among them and its shuffles."""
+    from collections import Counter
+
+    from activegs_torch.scripts import probe
+
+    kern = {k.name: k for k in (*comp.KERNELS, *comp.BF16_KERNELS)}[name]
+    parts = []
+    for fn, text in probe.sass(kern.library).items():
+        try:
+            ops = Counter(probe.exp_loop_opcodes(text))
+        except ValueError:  # a function without such a loop (the tile ordering)
+            continue
+        n, n_exp = sum(ops.values()), ops["MUFU.EX2"]
+        shfl = sum(v for op, v in ops.items() if op.startswith("SHFL"))
+        parts.append(f"{re.sub(r'^_ZN9composite[0-9]+', '', fn.split('EEv')[0])}: {n} instructions for {n_exp} expf "
+                     f"({n / n_exp:.1f} each), {shfl} shuffles")
+    return "; ".join(parts)
 
 
 def device_ops(prof) -> list:
@@ -682,8 +767,9 @@ def parent_in_turns(views, parent: str, rounds: int = 4) -> None:
     """The compositor kernels of the checkout `parent` (a `git archive` of
     the parent commit) against this checkout's: finds which kernels'
     sources differ (fails unless one does), and for each that does, calls
-    each side's own wrapper on that kernel's views (`views`, {kernel:
-    {view: the wrapper's arguments}}), checks the two outputs bitwise
+    each side's own wrapper on that kernel's views (`views`, {kernel or
+    bf16 instance (`<kernel>_bf16`: the same source and wrapper): {view:
+    the wrapper's arguments}}), checks the two outputs bitwise
     equal, prints what each build gives and each call's device time by
     kernel, then times them in turns, parent, change, change, parent,
     `rounds` times, each a median of TIMED_LAUNCHES calls."""
@@ -693,7 +779,8 @@ def parent_in_turns(views, parent: str, rounds: int = 4) -> None:
     csrc = Path(parent) / "activegs_torch" / "render" / "csrc"
     check(csrc.is_dir(), f"no compositor kernel sources under {parent}")
     # a library is named by the digest of its sources, taken the same way on both sides
-    changed = [n for n in views if _build.source_digest(n, csrc) != _build.source_digest(n)]
+    source = {n: n.removesuffix("_bf16") for n in views}
+    changed = [n for n in views if _build.source_digest(source[n], csrc) != _build.source_digest(source[n])]
     print(f"parent A/B: kernels whose sources differ from the parent's: {', '.join(changed) or 'none'}")
     check(bool(changed), "no compositor kernel source differs from the parent's")
     comp = {"parent": import_composite(Path(parent), "_parent_activegs_torch"), "change": cp}
@@ -701,7 +788,7 @@ def parent_in_turns(views, parent: str, rounds: int = 4) -> None:
         short = name.removeprefix("composite_")
         calls = {}
         for view, args in views[name].items():
-            calls[view] = {side: (lambda m=m, a=args: getattr(m, name)(*a)) for side, m in comp.items()}
+            calls[view] = {side: (lambda m=m, a=args: getattr(m, source[name])(*a)) for side, m in comp.items()}
             outs = {side: call() for side, call in calls[view].items()}
             same = same_bits(outs["parent"], outs["change"])
             print(f"{short} A/B, {view}: the two kernels' outputs bitwise equal: {same}")
@@ -709,6 +796,7 @@ def parent_in_turns(views, parent: str, rounds: int = 4) -> None:
         rcfg = next(iter(views[name].values()))[-1]
         for side in comp:
             print(f"{short} A/B {side} build: {kernel_build(comp[side], name, rcfg)}")
+            print(f"{short} A/B {side} SASS, innermost loop with an expf: {exp_loops(comp[side], name)}")
         for view, call in calls.items():
             for side in comp:
                 print(f"{short} A/B {side}, {view}, device time a call: "
@@ -721,6 +809,72 @@ def parent_in_turns(views, parent: str, rounds: int = 4) -> None:
                 print(f"{short} A/B {side}, {view}: median {statistics.median(ts):.4f} ms over {len(ts)} turns "
                       f"(each a median of {TIMED_LAUNCHES} calls), range {min(ts):.4f}-{max(ts):.4f} ms, in order "
                       + " ".join(f"{t:.4f}" for t in ts))
+
+
+# the stats kernel's scheduling, and the source edits that undo each part:
+# the tile ranking (block b replays tile b) and the cap of 2 blocks an SM
+# (the registers then allow 3)
+STATS_SCHEDULES = {
+    "tile order, 3 blocks an SM": (("const int tile = order[blockIdx.x];", "const int tile = blockIdx.x;"),
+                                   ("per_sm / (blocks + 1) - reserved + 1", "0")),
+    "tile order, 2 blocks an SM": (("const int tile = order[blockIdx.x];", "const int tile = blockIdx.x;"),),
+    "ranked, 3 blocks an SM": (("per_sm / (blocks + 1) - reserved + 1", "0"),),
+}
+
+
+def stats_schedule_phase(views, rounds: int = 2) -> dict:
+    """The stats kernel against builds of its source without its tile
+    ranking, without its cap of 2 blocks an SM, and without both
+    (STATS_SCHEDULES; each under build/stats_schedules/, all nvcc processes
+    started together): on each stats view (`views`, {view: the wrapper's
+    arguments}) each build's output must be bitwise the kernel's, and each
+    is timed in turns against it (kernel, build, build, kernel, `rounds`
+    times; CUDA events, each a median of TIMED_LAUNCHES calls) and by
+    device time (torch.profiler). Returns {view: {schedule: ms}}."""
+    from activegs_torch.render import _build
+    from activegs_torch.render import composite as cp
+
+    builds = {}
+    for name, edits in STATS_SCHEDULES.items():
+        src = (_build.CSRC / "composite_stats.cu").read_text()
+        for old, new in edits:
+            check(old in src, f"stats schedule {name!r}: the source no longer holds {old!r}")
+            src = src.replace(old, new)
+        d = Path("build/stats_schedules") / re.sub(r"\W+", "_", name)
+        d.mkdir(parents=True, exist_ok=True)
+        for f in _build.CSRC.glob("*.cuh"):
+            (d / f.name).write_text(f.read_text())
+        (d / "composite_stats.cu").write_text(src)
+        builds[name] = _build.CudaKernel("composite_stats", cp._STATS_ARGS, csrc=d)
+    _build.build_all([(k.csrc, k.source) for k in builds.values()])
+
+    def call(kern, ent, ts, tl, mask, thr, ntx, rcfg):
+        imp = torch.zeros((1, ent.shape[1]), device=ent.device)
+        cnt = torch.zeros_like(imp)
+        order = torch.empty(len(ts), dtype=torch.int32, device=ent.device)
+        kern.launch(ent.data_ptr(), ent.shape[1], ts.data_ptr(), tl.data_ptr(), mask.data_ptr(), thr,
+                    imp.data_ptr(), cnt.data_ptr(), order.data_ptr(), len(ts), *cp._tail(ntx, rcfg, ent.device))
+        return imp, cnt
+
+    res = {}
+    for view, args in views.items():
+        ref = cp.composite_stats(*args)
+        res[view] = {}
+        for name, kern in {"ranked, 2 blocks an SM (the kernel)": cp.stats_kernel, **builds}.items():
+            fn = lambda k=kern, a=args: call(k, *a)  # noqa: E731
+            check(same_bits(fn(), ref), f"stats schedule {name!r} changed the output on the {view}")
+            times = {"kernel": [], name: []}
+            for _ in range(rounds):
+                for side in ("kernel", name, name, "kernel"):
+                    times[side].append(time_ms(lambda s=side: (cp.composite_stats(*args) if s == "kernel" else fn()),
+                                               TIMED_LAUNCHES))
+            dev_ms = kernel_device_ms(fn, TIMED_LAUNCHES, kern, "stats_kernel<")[0][0]
+            res[view][name] = {"ms": statistics.median(times[name]), "kernel_ms": statistics.median(times["kernel"]),
+                               "device_ms": dev_ms}
+            print(f"stats schedule, {view}: {name}: {statistics.median(times[name]):.4f} ms against the kernel's "
+                  f"{statistics.median(times['kernel']):.4f} in turns (CUDA events, each a median of "
+                  f"{TIMED_LAUNCHES}); replay device time {dev_ms:.4f} ms")
+    return res
 
 
 def mission_phase(dev):
@@ -1367,7 +1521,7 @@ def bf16_phase(views, grid, tops: dict) -> dict:
         return (*args[:-1], dataclasses.replace(args[-1], bf16_pairs=True))
 
     fwd_args = views["composite_fwd"][KF_VIEW]
-    (stats_args,) = views["composite_stats"].values()
+    stats_args = views["composite_stats"][f"{KF_VIEW}, front only"]
     ent, ts, tl, _, gout, ntx, rcfg = views["composite_bwd"][KF_VIEW]
     rb = dataclasses.replace(rcfg, bf16_pairs=True)
     grid_args, tpv = grid
@@ -1386,6 +1540,7 @@ def bf16_phase(views, grid, tops: dict) -> dict:
         p_b16 = lambda a=as_bf16(args), x=extra: getattr(cp, f"{name}_plain")(*a, *x)  # noqa: E731
         got, want = k_b16(), p_b16()
         torch.cuda.synchronize()
+        extra = {}
         if name == "composite_fwd":
             e_img = float((got[:, img_rows] - want[:, img_rows]).abs().max())
             e_dep = float((got[:, O_DEPTH] - want[:, O_DEPTH]).abs().max())
@@ -1410,6 +1565,9 @@ def bf16_phase(views, grid, tops: dict) -> dict:
             stop = cp.composite_fwd(*as_bf16(args[:3] + args[5:]))[:, O_STOP, 0]
             what = f"importance err (rel to max) {e_imp:.3g}, count mismatches {int((c_k != c_p).sum())}"
             nbytes = 18 * args[0].shape[1] * 4 + mask.numel() * 4 + 2 * args[0].shape[1] * 4
+            b_args = as_bf16(args)
+            rows = cp.stats_live_rows(*b_args[:4], *b_args[5:])
+            extra["live_row_share"] = rows["live_pairs"] / rows["pairs"]
         del got, want
         check(ok, f"{name}_bf16 disagrees with its plain version on the {view}")
         times = {"f32": [], "bf16": []}
@@ -1422,7 +1580,7 @@ def bf16_phase(views, grid, tops: dict) -> dict:
         bounds = bf16_bounds(name, pairs, nbytes, tops)
         rec = {"view": view, "max_abs_err": err, "ms": med["bf16"], "f32_ms": med["f32"],
                "ratio_bf16_f32": med["bf16"] / med["f32"], "turns_ms": times, "plain_ms": plain_ms,
-               "pairs": pairs, **bounds}
+               "pairs": pairs, **bounds, **extra}
         recs.setdefault(f"{name}_bf16", []).append(rec)
         print(f"{name}_bf16, {view}: against plain, {what}; {med['bf16']:.4f} ms against f32 {med['f32']:.4f} ms "
               f"(x{rec['ratio_bf16_f32']:.3f}; CUDA events in turns f32/bf16/bf16/f32, twice, each a median of "
@@ -1494,6 +1652,9 @@ def main() -> None:
     parser.add_argument("--parent", metavar="DIR",
                         help="also hold each compositor kernel whose source differs in the checkout DIR against "
                              "this one's, bitwise, and time the two in turns")
+    parser.add_argument("--stats-schedule", action="store_true",
+                        help="also time the stats kernel against builds without its tile ranking and without "
+                             "its cap of 2 blocks an SM")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -1519,6 +1680,10 @@ def main() -> None:
     fwd_build = kernel_build(cp, "composite_fwd", rcfg)
     print(f"composite_fwd build: {fwd_build}")
     errs, inputs, (live, rows), views = compare(state, buf, cfg, rcfg)
+    stats_cull = {view: stats_cull_line(view, args) for view, args in views["composite_stats"].items()}
+    stats_builds = {name: kernel_build(cp, name, rcfg) for name in ("composite_stats", "composite_stats_bf16")}
+    for name, build in stats_builds.items():
+        print(f"{name} build: {build}")
     kf_batch = keyframe_batched_phase(state, buf, cfg, rcfg)
     fused = fused_check(state, buf, cfg, rcfg)
     del state, buf
@@ -1526,6 +1691,15 @@ def main() -> None:
     probes, tops = probe_phase(dev)
     mission_launches, mapper = mission_phase(dev)
     utility_check(mapper)
+    # the second stats view: post_process's call on the mission's final map
+    m_view = f"mission final map (step {MISSION_STEPS}), latest keyframe, front only"
+    m_args = stats_view(mapper.gm_state, mapper.keyframes, mapper.map_cfg, mapper.raster_cfg)
+    errs["composite_stats"] = max(errs["composite_stats"], check_stats(m_view, m_args))
+    check_stats(m_view, (*m_args[:-1], dataclasses.replace(m_args[-1], bf16_pairs=True)))
+    stats_cull[m_view] = stats_cull_line(m_view, m_args)
+    views["composite_stats"][m_view] = m_args
+    views["composite_stats_bf16"] = {view: (*a[:-1], dataclasses.replace(a[-1], bf16_pairs=True))
+                                     for view, a in views["composite_stats"].items()}
     candidate, cand_view, plan_grid = candidate_phase(mapper, tops)
     views["composite_fwd"].update(cand_view)
     profile = plan_step_profile(mapper)
@@ -1540,6 +1714,14 @@ def main() -> None:
           f"ms data sheet, {kf_batch['kf_batch_bwd_measured_rate_bound_ms']:.4f} ms at the probe's measured rates "
           f"({pairs} pairs)")
 
+    # the stats launch's two kernels, by device time (torch.profiler)
+    stats_device = {}
+    for view, s_args in views["composite_stats"].items():
+        (replay, n_r, _), (rank, n_k, _) = kernel_device_ms(lambda a=s_args: cp.composite_stats(*a), TIMED_LAUNCHES,
+                                                            cp.stats_kernel, "stats_kernel<", "tile_rank_kernel")
+        stats_device[view] = {"replay": replay, "rank": rank}
+        print(f"composite_stats, {view}: device time a call: replay {replay:.4f} ms ({n_r} recorded), tile ranking "
+              f"{rank:.4f} ms ({n_k} recorded)")
     kernels = []
     for name, (kfn, pfn, pairs, nbytes) in inputs.items():
         ms = time_ms(kfn, TIMED_LAUNCHES)
@@ -1555,6 +1737,9 @@ def main() -> None:
                          plan_step_profile=profile)
         if name == "composite_bwd":
             extra.update(**kf_batch, fused_view_kernel=fused)
+        if name == "composite_stats":
+            extra.update(live_row_share=stats_cull[f"{KF_VIEW}, front only"]["live_row_share"],
+                         build=stats_builds[name], views=stats_cull, device_ms=stats_device)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1590,11 +1775,15 @@ def main() -> None:
             "library_ms": None,
             "measured_rate_bound_ms": recs[0]["measured_rate_bound_ms"],
             "f32_ms": recs[0]["f32_ms"],
+            **({"live_row_share": recs[0]["live_row_share"], "build": stats_builds[kern.name]}
+               if kern.name in stats_builds else {}),
             "views": recs,
             "launches_by_path": {"cli_mission": cli_launches[kern.name]},
         })
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
+    if args.stats_schedule:
+        stats_schedule_phase(views["composite_stats"])
     if args.parent:
         parent_in_turns(views, args.parent)
     print(json.dumps({"kernels": kernels}))

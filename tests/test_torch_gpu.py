@@ -264,6 +264,34 @@ def check_tile_order(cuda, t_n, ntx, tpv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t_n, ntx", [(512, 16), (700, 28), (4096, 16), (1, 1)])
+def test_stats_tile_order_puts_the_longest_tiles_first(cuda, t_n, ntx):
+    """The stats launch's ranking kernel, over fewer and more tiles than one
+    of its blocks has threads: `order` lists every tile once, by entry
+    count, most first, ties by index; the replay then writes nothing for
+    entries of opacity 0 at a positive threshold."""
+    cfg = CFGS["k128"]
+    k = cfg.chunk
+    gen = torch.Generator().manual_seed(t_n)
+    tile_len = torch.randint(0, 5 * k, (t_n,), generator=gen, dtype=torch.int32)
+    tile_len[::7] = 2 * k  # ties
+    nch = (tile_len.long() + k - 1) // k
+    tile_start = torch.cumsum(nch * k, 0) - nch * k
+    e = max(int((nch * k).sum()), k)
+    entries = torch.zeros((tt.PARAM_DIM, e), device=cuda)  # opacity 0: w = 0 everywhere
+    mask = torch.ones((t_n, cfg.tile_pixels), device=cuda)
+    imp = torch.zeros((1, e), device=cuda)
+    cnt = torch.zeros_like(imp)
+    order = torch.full((t_n,), -1, dtype=torch.int32, device=cuda)
+    ts, tl = tile_start.to(cuda, torch.int32), tile_len.to(cuda)
+    cp.stats_kernel.launch(entries.data_ptr(), e, ts.data_ptr(), tl.data_ptr(), mask.data_ptr(), 0.03,
+                           imp.data_ptr(), cnt.data_ptr(), order.data_ptr(), t_n, *cp._tail(ntx, cfg, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(order.cpu().long(), torch.sort(-tile_len.long(), stable=True).indices)
+    assert not imp.any() and not cnt.any()
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     cfg = CFGS["k128"]
     ent = torch.zeros((tt.PARAM_DIM, 256), device=cuda)
@@ -426,6 +454,42 @@ def test_bf16_kernels_match_plain(cuda, scene_id, cfg_id):
     stop = o_k[:, tt.O_STOP, 0]
     assert 0 < cp.live_warp_rows(*args, stop, ntx, cfg)[0]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_id", list(CFGS) + list(BF16_CFGS))
+@pytest.mark.parametrize("scene_id", list(FWD_SCENES))
+def test_stats_kernel_cull_matches_plain(cuda, scene_id, cfg_id):
+    """The stats kernel, f32 and bf16 instances at K = 128 and 8, against
+    its plain version: on the small-surfel scene (most (entry, 32-pixel
+    row) pairs culled) and the wall-edge scene (tiles that stop after one
+    chunk), with a mask that masks whole warps, some with -0.0, at
+    thresholds 0.03, 0 and -1 (every pixel counts, pad entries included).
+    Importance within 1e-5 of its largest, counts at most 2 apart (equal
+    at thresholds <= 0), and five launches bitwise equal."""
+    cfg = {**CFGS, **BF16_CFGS}[cfg_id]
+    make, shape = FWD_SCENES[scene_id]
+    args, ntx = scene_entries(make(cuda), cfg, cuda, shape)
+    t_n, p = len(args[1]), cfg.tile_pixels
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    m = (torch.rand(t_n, p, generator=gen, device=cuda) > 0.3).float().reshape(t_n, p // 32, 32)
+    dead = torch.rand(t_n, p // 32, 1, generator=gen, device=cuda)
+    m = torch.where(dead < 0.2, 0.0, torch.where(dead < 0.3, -0.0, m)).reshape(t_n, p)
+    rows = cp.stats_live_rows(*args, m, ntx, cfg)
+    assert 0 < rows["live_pairs"] < rows["pairs"] // 2 and 0 < rows["live_rounds"] < rows["rounds"]
+    if cfg.chunk == 128:
+        assert bool((cp.composite_fwd_plain(*args, ntx, cfg)[:, tt.O_STOP, 0] == 1).any())
+    kern = cp.stats_bf16_kernel if cfg.bf16_pairs else cp.stats_kernel
+    for thres in (0.03, 0.0, -1.0):
+        n0 = kern.launches
+        runs = [cp.composite_stats(*args, m, thres, ntx, cfg) for _ in range(5)]
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 5
+        (i_k, c_k), (i_p, c_p) = runs[0], cp.composite_stats_plain(*args, m, thres, ntx, cfg)
+        assert float((i_k - i_p).abs().max()) <= 1e-5 * float(i_p.abs().max()), thres
+        assert int((c_k != c_p).sum()) <= (2 if thres > 0.0 else 0), thres
+        assert all(torch.equal(i_k.view(torch.int32), i.view(torch.int32)) and torch.equal(c_k, c)
+                   for i, c in runs[1:]), thres
 
 @pytest.mark.cuda
 def test_bf16_kernels_refuse_what_the_f32_kernels_refuse(cuda):
