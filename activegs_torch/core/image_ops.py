@@ -1,6 +1,5 @@
 """Image-space operators: depth->normal, bilateral smoothing, finite
-differences (port of `activegs_tpu/core/image_ops.py`; `ssim` comes with the
-eval slice)."""
+differences, SSIM (port of `activegs_tpu/core/image_ops.py`)."""
 
 from __future__ import annotations
 
@@ -85,6 +84,30 @@ def bilateral_filter(
             den = den + wgt
     out = torch.where(den > 1e-12, num / torch.clamp(den, min=1e-12), d)
     return torch.where(invalid, -1.0, out)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Mean SSIM between (..., c, h, w) images, data range 1.0: a Gaussian
+    window (sigma 1.5), C1 = 0.01^2, C2 = 0.03^2, 'same' zero padding (at
+    stride 1 a symmetric pad of window_size // 2)."""
+    xs = torch.arange(window_size, dtype=torch.float32, device=img1.device) - window_size // 2
+    g = torch.exp(-(xs**2) / (2.0 * 1.5**2))
+    g = g / torch.sum(g)
+    win = torch.outer(g, g)[None, None]
+
+    def blur(x):
+        b = x.reshape((-1, 1) + x.shape[-2:])
+        return torch.nn.functional.conv2d(b, win, padding=window_size // 2).reshape(x.shape)
+
+    mu1 = blur(img1)
+    mu2 = blur(img2)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    s1 = blur(img1 * img1) - mu1_sq
+    s2 = blur(img2 * img2) - mu2_sq
+    s12 = blur(img1 * img2) - mu12
+    c1, c2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu12 + c1) * (2 * s12 + c2)) / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
+    return torch.mean(ssim_map)
 
 
 def central_diff_sq(x: torch.Tensor) -> torch.Tensor:

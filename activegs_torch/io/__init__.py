@@ -1,1 +1,2 @@
-"""Map checkpoints and the mission recorder (port of `activegs_tpu/io/`)."""
+"""Map checkpoints, the mission recorder, PLY meshes and PNG images (port of
+`activegs_tpu/io/`)."""

@@ -1,5 +1,6 @@
 """Simulators (port of `activegs_tpu/sim/`)."""
 
+from .replay import ReplaySimulator  # noqa: F401
 from .synthetic import BoxRoomSimulator, default_room  # noqa: F401
 
 
@@ -9,8 +10,5 @@ def get_simulator(cfg, device="cuda"):
     if kind == "synthetic":
         return BoxRoomSimulator.from_config(cfg, device=device)
     if kind == "replay":
-        raise NotImplementedError(
-            "simulator.type=replay: the replay simulator (sim/replay.py) is not ported yet "
-            "(ROADMAP.md, queue 1 item 4)"
-        )
+        return ReplaySimulator.from_config(cfg, device=device)
     raise ValueError(f"unknown simulator type: {kind}")

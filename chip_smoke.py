@@ -6,7 +6,7 @@ Builds the hand-written kernels of the port (the three tile-compositor
 kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
 instance exported by the same source, and the two elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
-together), then drives four paths, each with the launch counters zeroed
+together), then drives five paths, each with the launch counters zeroed
 just before it and read just after:
 
 1. the mapping step (spawn -> keyframe view stats -> train_keyframe -> stats
@@ -61,7 +61,26 @@ just before it and read just after:
    2^19, 100 candidates at 128 x 128), for CLI_STEPS steps into the
    git-ignored `build/cli_mission/`: it checks the losses, that
    exploration rises, and that the training, post_process and candidate
-   paths launched the bf16 instances, and no f32 instance.
+   paths launched the bf16 instances, and no f32 instance;
+5. the offline evaluation: `activegs_torch.apps.data_generation.main()`
+   at the config's defaults (200 test views of the boxroom at 512 x 512,
+   explored with the random planner) into the git-ignored
+   `build/datasets/`, each PNG read back with zlib against its frame; a
+   replay dataset of 8 of those views recorded and read back on the card
+   bitwise; `activegs_torch.apps.mesh_app.main()` on path 4's experiment
+   (1024 x 1024 renders along its cameras with the f32 raster config, a
+   2 cm / 10 cm TSDF over the boxroom's 12,055,125 voxels, marching
+   tetrahedra, the cluster filter), each stage timed, with the renders'
+   `num_dropped`; and `activegs_torch.apps.eval_app.main()` on those test
+   views (every snapshot scored at 512 x 512, mesh metrics at 500,000
+   samples against the room's mesh). It checks the scores finite, LPIPS
+   None without local weights, and that the path launched the forward
+   kernel and no other. Then it holds the forward kernel against its
+   plain version on one of the 1024 x 1024 mesh renders (2048 tiles) and
+   times it, scores the final snapshot at 4 test poses on the card and on
+   the CPU (PSNR within 1e-3 dB, SSIM 1e-5, depth MSE and the perceptual
+   distance 1e-4 relative), and fuses one 1024 x 1024 render into the
+   TSDF on both (weights equal at >= 99.99% of voxels, TSDF within 1e-5).
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -143,6 +162,13 @@ BF16_OPS_PER_PAIR = {"composite_fwd": 13, "composite_bwd": 26, "composite_stats"
 # bf16 probe's rate, is the one to read
 PEAK_BF16_FLOPS = 989e12
 CLI_STEPS = 3
+# path 5: the CLI mission's experiment, where the test views go, and how
+# many of them the card-against-CPU scoring and the replay check take
+OFFLINE_EXP = ["experiment.output_dir=build/cli_mission", "experiment.exp_id=chip_smoke"]
+OFFLINE_DIR = "build/datasets"
+OFFLINE_VIEWS = 200
+REPLAY_FRAMES = 8
+CARD_CPU_POSES = 4
 REPLACES = {
     "composite_fwd": "activegs_tpu/render/composite_pallas.py:179",
     "composite_bwd": "activegs_tpu/render/composite_pallas.py:297",
@@ -1622,8 +1648,7 @@ def cli_mission_phase() -> dict:
         plan_fwd.append(cp.fwd_bf16_kernel.launches - n0)
         return out
 
-    argv = ["mapper.raster.bf16_pairs=true", f"max_steps={CLI_STEPS}", "experiment.output_dir=build/cli_mission",
-            "experiment.exp_id=chip_smoke"]
+    argv = ["mapper.raster.bf16_pairs=true", f"max_steps={CLI_STEPS}", *OFFLINE_EXP]
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -1645,6 +1670,286 @@ def cli_mission_phase() -> dict:
     check(all(launches[k.name] == 0 for k in cp.KERNELS), f"cli mission: an f32 instance ran under bf16_pairs: "
           f"{launches}")
     return launches
+
+
+class FramesOn:
+    """A simulator's ground-truth frames moved to `device`: the card's and
+    the CPU's evaluation score against the same frames."""
+
+    def __init__(self, sim, device):
+        self.sim, self.device = sim, device
+
+    def simulate(self, pose, require_gt=False):
+        return {k: v.to(self.device) for k, v in self.sim.simulate(pose, require_gt=require_gt).items()}
+
+
+def png_pixels(path: str):
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all have filter
+    type 0, the form `activegs_torch.io.png.write_png` writes, read with
+    zlib; fails on any other form."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (n,), kind = struct.unpack(">I", data[pos : pos + 4]), data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + n]
+        check(zlib.crc32(kind + body) == struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])[0], f"{path}: CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = header[:4]
+    check((depth, color) == (8, 2), f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def offline_eval_phase(dev, tops: dict) -> tuple[dict, dict, dict]:
+    """Path 5, the offline evaluation at full size, every kernel's counter
+    zeroed before and read after: `data_generation.main()` at the config's
+    defaults (OFFLINE_VIEWS test views at 512x512) into `build/datasets/`,
+    a replay dataset of REPLAY_FRAMES of them recorded and read back,
+    `mesh_app.main()` on the CLI mission's experiment (1024x1024 renders
+    along its cameras, the 2 cm TSDF over the boxroom, f32 raster config)
+    and `eval_app.main()` on the test views (every snapshot, mesh metrics
+    at 500,000 samples). Then, outside the counted run: one of the
+    1024x1024 renders through the forward kernel against its plain version
+    and timed, the final snapshot scored on the card and on the CPU at
+    CARD_CPU_POSES test poses, and one TSDF integration of a 1024x1024
+    render on both. Returns (the fwd kernel's 1024x1024 record, {kernel:
+    launches}, the path's record)."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from activegs_torch.apps import data_generation, eval_app, mesh_app
+    from activegs_torch.apps.common import experiment_path
+    from activegs_torch.config import load_config
+    from activegs_torch.eval import evaluation, metrics, tsdf
+    from activegs_torch.io import checkpoint, ply
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render import renderer
+    from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS, RasterConfig
+    from activegs_torch.sim import ReplaySimulator, get_simulator
+
+    kernels = (*cp.KERNELS, *cp.BF16_KERNELS)
+    rec = {}
+    for k in kernels:
+        k.launches = 0
+    t_path = time.perf_counter()
+
+    # test views
+    t0 = time.perf_counter()
+    test_dir = data_generation.main([f"dataset_path={OFFLINE_DIR}"])
+    rec["data_generation_s"] = time.perf_counter() - t0
+    poses = np.loadtxt(os.path.join(test_dir, "traj.txt")).reshape(-1, 4, 4).astype(np.float32)
+    pngs = sorted(glob.glob(os.path.join(test_dir, "rgb", "*.png")))
+    depths = sorted(glob.glob(os.path.join(test_dir, "depth", "*.npy")))
+    check(len(poses) == len(pngs) == len(depths) == OFFLINE_VIEWS,
+          f"data generation: {len(poses)} poses, {len(pngs)} PNGs, {len(depths)} depth arrays")
+    sim = get_simulator(load_config("data_generation"), device=dev)
+    for pose, png, dep in zip(poses, pngs, depths):
+        f = sim.simulate(pose, require_gt=True)
+        want = (torch.clamp(f["rgb"], 0, 1) * 255).to(torch.uint8).permute(1, 2, 0).cpu().numpy()
+        check(np.array_equal(png_pixels(png), want), f"data generation: {png} holds other pixels than its frame")
+        check(np.array_equal(np.load(dep), f["depth"][0].cpu().numpy()), f"data generation: {dep} differs")
+    print(f"data generation (python -m activegs_torch.apps.data_generation dataset_path={OFFLINE_DIR}): "
+          f"{OFFLINE_VIEWS} test views at {sim.resolution[0]}x{sim.resolution[1]} in {rec['data_generation_s']:.2f} s "
+          f"into {test_dir}; every PNG's pixels (read with zlib) and depth array are its frame's")
+
+    # replay
+    replay_dir = os.path.join(OFFLINE_DIR, "replay_check")
+    ReplaySimulator.record(replay_dir, sim, poses[:REPLAY_FRAMES])
+    replay = ReplaySimulator(replay_dir, device=dev)
+    with np.load(os.path.join(replay_dir, "frames.npz")) as data:
+        stored = {k: data[k] for k in ("extrinsics", "rgbs", "depths")}
+    for i, pose in enumerate(poses[:REPLAY_FRAMES]):
+        check(replay._nearest(pose) == i, f"replay: the nearest recorded pose of pose {i} is {replay._nearest(pose)}")
+        f = replay.simulate(torch.from_numpy(pose).to(dev), require_gt=True)
+        d = torch.from_numpy(stored["depths"][i]).to(dev)
+        same = (f["rgb"].device.type == dev.type
+                and torch.equal(f["rgb"], torch.from_numpy(stored["rgbs"][i]).to(dev).float() / 255.0)
+                and torch.equal(f["depth"][0], torch.where(d > 0, d, -2.0))
+                and torch.equal(f["extrinsic"].cpu(), torch.from_numpy(stored["extrinsics"][i])))
+        check(same, f"replay: frame {i} read back on the card differs from the recorded arrays")
+    print(f"replay: {REPLAY_FRAMES} frames recorded from the synthetic simulator and read back on the card, bitwise "
+          f"the recorded arrays; each pose's nearest recorded pose is its own")
+
+    # meshes of the CLI mission's snapshots, each stage timed
+    stages, dropped, renders = {"render_integrate": [], "extract": [], "filter": [], "save": []}, [], []
+    gen, render, extract, filt, save = (mesh_app.generate_mesh, evaluation.render_view, tsdf.extract_mesh,
+                                        tsdf.filter_isolated, ply.save_ply)
+    marks = {}
+
+    def timed_gen(*a, **kw):
+        marks["gen"] = time.perf_counter()
+        return gen(*a, **kw)
+
+    def counted_render(attrs, camera, shape, cfg, **kw):
+        out, aux = render(attrs, camera, shape, cfg, **kw)
+        dropped.append(int(aux["num_dropped"]))
+        renders.append((attrs, camera, shape, cfg, out.rgb, out.depth[0]))
+        return out, aux
+
+    def timed(stage, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            stages[stage].append(time.perf_counter() - t)
+            return out
+        return call
+
+    def timed_extract(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stages["render_integrate"].append(t - marks["gen"])
+        out = extract(*a, **kw)
+        stages["extract"].append(time.perf_counter() - t)
+        return out
+
+    mesh_argv = [*OFFLINE_EXP]
+    with mock.patch.object(mesh_app, "generate_mesh", timed_gen), \
+            mock.patch.object(evaluation, "render_view", counted_render), \
+            mock.patch.object(tsdf, "extract_mesh", timed_extract), \
+            mock.patch.object(tsdf, "filter_isolated", timed("filter", filt)), \
+            mock.patch.object(ply, "save_ply", timed("save", save)):
+        t0 = time.perf_counter()
+        mesh_files = mesh_app.main(mesh_argv)
+        rec["mesh_app_s"] = time.perf_counter() - t0
+    check(len(mesh_files) > 0, "mesh_app wrote no mesh")
+    bbox = sim.bbox
+    meshes = []
+    for path, *times in zip(mesh_files, *stages.values()):
+        verts, faces = ply.load_ply(path)
+        meshes.append({"file": path, "vertices": len(verts), "faces": len(faces)})
+        print(f"mesh_app, {os.path.basename(path)}: {len(verts)} vertices, {len(faces)} faces; "
+              + ", ".join(f"{k} {t:.2f} s" for k, t in zip(stages, times)))
+        check(len(faces) > 0 and bool((verts >= bbox[0] - 0.3).all()) and bool((verts <= bbox[1] + 0.3).all()),
+              f"mesh_app: {path} has no faces or leaves the bbox + 0.3 m")
+    grid = tsdf.TSDFGrid.create(bbox)
+    shape = renders[0][2]
+    rec.update(meshes=meshes, mesh_stage_s=stages, mesh_renders=len(renders), mesh_render_shape=list(shape),
+               mesh_num_dropped=dropped, tsdf_voxels=grid.num)
+    print(f"mesh_app (python -m activegs_torch.apps.mesh_app {' '.join(mesh_argv)}): {len(mesh_files)} snapshot(s), "
+          f"{len(renders)} renders at {shape[0]}x{shape[1]}, TSDF over {grid.num} voxels {grid.dims}, in "
+          f"{rec['mesh_app_s']:.2f} s; num_dropped of the renders {dropped}")
+
+    # the evaluation (test views x snapshots, then mesh metrics)
+    scores, mesh_metric_s = [], []
+    score, calc = evaluation.score_view, metrics.calc_3d_mesh_metric
+
+    def timed_score(*a, **kw):
+        out = score(*a, **kw)
+        scores.append(time.perf_counter())
+        return out
+
+    def timed_calc(*a, **kw):
+        t = time.perf_counter()
+        out = calc(*a, **kw)
+        mesh_metric_s.append(time.perf_counter() - t)
+        return out
+
+    eval_argv = [*OFFLINE_EXP, f"test_folder={test_dir}"]
+    with mock.patch.object(evaluation, "score_view", timed_score), \
+            mock.patch.object(metrics, "calc_3d_mesh_metric", timed_calc):
+        t0 = time.perf_counter()
+        result = eval_app.main(eval_argv)
+        rec["eval_app_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    rec["path_s"] = time.perf_counter() - t_path
+    n_maps = len(result["step"])
+    # a scoring's time: from one score_view's return to the next (the next
+    # pose's ground truth, the render, the metrics, the host reads)
+    per_score = statistics.median(b - a for a, b in zip(scores, scores[1:])) if len(scores) > 1 else float("nan")
+    rec.update(eval_scorings=len(scores), eval_score_ms=per_score * 1e3, mesh_metrics_s=mesh_metric_s,
+               result={k: v for k, v in result.items()})
+    print(f"eval_app (python -m activegs_torch.apps.eval_app {' '.join(eval_argv)}): {len(poses)} test views x "
+          f"{n_maps} snapshot(s) = {len(scores)} scorings at {sim.resolution[0]}x{sim.resolution[1]} in {rec['eval_app_s']:.2f} s, "
+          f"{rec['eval_score_ms']:.2f} ms a (view, map) (median); mesh metrics (500000 samples) "
+          + ", ".join(f"{t:.2f} s" for t in mesh_metric_s))
+    for k in ("mean_psnr", "mean_ssim", "mean_perceptual", "mean_depth_mse", "mean_lpips", "mesh_accuracy",
+              "mesh_completion", "mesh_completion_ratio", "mesh_chamfer_distance"):
+        print(f"  {k}: {result[k]}")
+    finite = all(v is not None and math.isfinite(v) for k in ("mean_psnr", "mean_ssim", "mean_perceptual",
+                                                              "mean_depth_mse") + tuple(k for k in result
+                                                                                        if k.startswith("mesh_"))
+                 for v in result[k])
+    check(finite and len(result["mean_psnr"]) == n_maps, f"eval_app: a score is not finite: {result}")
+    check(result["mean_lpips"] == [None] * n_maps, f"eval_app: mean_lpips {result['mean_lpips']} without weights")
+    check(launches["composite_fwd"] > 0, f"offline eval: the fwd kernel was not launched: {launches}")
+    check(all(n == 0 for k, n in launches.items() if k != "composite_fwd"),
+          f"offline eval launched another kernel than fwd: {launches}")
+    print(f"offline eval path: {rec['path_s']:.2f} s; launches {launches}")
+
+    # outside the counted run: the fwd kernel against its plain version on
+    # the last 1024x1024 mesh render
+    attrs, camera, shape, rcfg, rgb_1024, depth_1024 = renders[-1]
+    ent, b, _, _ = renderer._view_entries(attrs, camera, shape, rcfg, False, None, None)
+    ntx = -(-shape[1] // rcfg.tile_w)
+    args = (ent.detach(), b.tile_start, b.tile_len, ntx, rcfg)
+    o_k, o_p = cp.composite_fwd(*args), cp.composite_fwd_plain(*args)
+    img_rows = [r for r in range(O_TRANS + 1) if r != O_DEPTH]
+    e_img = float((o_k[:, img_rows] - o_p[:, img_rows]).abs().max())
+    e_dep = float((o_k[:, O_DEPTH] - o_p[:, O_DEPTH]).abs().max())
+    view = f"{shape[0]}x{shape[1]} mesh render (last camera, snapshot {result['step'][-1]})"
+    print(f"fwd, {view}: E {ent.shape[1]} tiles {len(b.tile_start)} (ntx {ntx}) num_dropped {int(b.num_dropped)}; "
+          f"image err {e_img:.3g} depth err {e_dep:.3g}")
+    check(e_img <= 2e-5 and e_dep <= 1e-4, f"fwd kernel disagrees with its plain version on the {view}")
+    check(torch.equal(o_k[:, O_STOP], o_p[:, O_STOP]), f"fwd kernel stops at other chunks than its plain version "
+          f"on the {view}")
+    live, _ = cull_line("fwd kernel", view, args, o_k[:, O_STOP, 0])
+    fwd = {"view": view, "tiles": len(b.tile_start), "entries": ent.shape[1], "num_dropped": int(b.num_dropped),
+           "max_abs_err": max(e_img, e_dep), "ms": time_ms(lambda: cp.composite_fwd(*args), TIMED_LAUNCHES),
+           "device_ms": fwd_device_ms(lambda: cp.composite_fwd(*args), TIMED_LAUNCHES),
+           "plain_ms": time_ms(lambda: cp.composite_fwd_plain(*args), PLAIN_RUNS),
+           **fwd_bounds(args, o_k, tops, live)}
+    print(f"composite_fwd, {view}: {fwd['ms']:.4f} ms (CUDA events; device time {fwd['device_ms']:.4f} ms; plain "
+          f"{fwd['plain_ms']:.3f} ms), bound {fwd['bound_ms']:.4f} ms data sheet ({fwd['bound_by']}), "
+          f"{fwd['measured_rate_bound_ms']:.4f} ms at the probe's measured rates, live-work bound "
+          f"{fwd['live_work_bound_ms']:.4f} ms at those rates ({fwd['pairs']} pairs)")
+
+    # the card against the CPU: the final snapshot at CARD_CPU_POSES test
+    # poses (the same ground-truth frames), and one TSDF integration
+    final = os.path.join(experiment_path(load_config("eval", eval_argv)), "map", f"map_{result['step'][-1]}.npz")
+    rcfg32 = RasterConfig()
+    got = {}
+    t0 = time.perf_counter()
+    for d in (dev.type, "cpu"):
+        state, mcfg = checkpoint.load_gaussian_map(final, device=d)
+        got[d] = evaluation.EvaluationTool([(state, mcfg)], [None], poses[:CARD_CPU_POSES], FramesOn(sim, d), None,
+                                           rcfg32).eval(mode="rendering")
+    rec["card_cpu_eval_s"] = time.perf_counter() - t0
+    card, host = got[dev.type], got["cpu"]
+    diffs = {"psnr_db": abs(card["mean_psnr"][0] - host["mean_psnr"][0]),
+             "ssim": abs(card["mean_ssim"][0] - host["mean_ssim"][0]),
+             **{f"{k}_rel": abs(card[f"mean_{k}"][0] / host[f"mean_{k}"][0] - 1) for k in ("depth_mse", "perceptual")}}
+    print(f"card against CPU, snapshot {result['step'][-1]} at {CARD_CPU_POSES} test poses ({rec['card_cpu_eval_s']:.1f}"
+          f" s): card " + " ".join(f"{k} {v[0]:.6g}" for k, v in card.items() if v[0] is not None)
+          + "; cpu " + " ".join(f"{k} {v[0]:.6g}" for k, v in host.items() if v[0] is not None)
+          + "; differences " + " ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+    check(diffs["psnr_db"] <= 1e-3 and diffs["ssim"] <= 1e-5 and diffs["depth_mse_rel"] <= 1e-4
+          and diffs["perceptual_rel"] <= 1e-4, f"the card's scores disagree with the CPU's: {diffs}")
+    ext, intr = camera.extrinsic, camera.intrinsic
+    fused = {}
+    for d in (dev.type, "cpu"):
+        st = tsdf.integrate(tsdf.init_state(grid, d), grid, rgb_1024.to(d), depth_1024.to(d), ext.to(d), intr.to(d))
+        fused[d] = tsdf.tsdf_state_to_numpy(st)
+    same = fused[dev.type]["weight"] == fused["cpu"]["weight"]
+    t_err = float(np.abs(fused[dev.type]["tsdf"][same] - fused["cpu"]["tsdf"][same]).max())
+    print(f"TSDF integrate of the {view}, card against CPU: weights equal at {same.mean():.6f} of {grid.num} voxels "
+          f"({int((fused['cpu']['weight'] > 0).sum())} observed), TSDF max err {t_err:.3g} where equal")
+    check(same.mean() >= 0.9999 and t_err <= 1e-5, "TSDF integration on the card disagrees with the CPU's")
+    rec.update(card_cpu=diffs, tsdf_weight_equal=float(same.mean()), tsdf_max_err=t_err)
+    return fwd, launches, rec
 
 
 def main() -> None:
@@ -1707,6 +2012,7 @@ def main() -> None:
     del mapper, plan_grid
     torch.cuda.empty_cache()
     cli_launches = cli_mission_phase()
+    fwd_1024, offline_launches, offline = offline_eval_phase(dev, tops)
     pairs = kf_batch["kf_batch_pairs"]
     kf_batch.update(kf_batch_bwd_bound_ms=pairs * OPS_PER_PAIR["composite_bwd"] / PEAK_FP32_FLOPS * 1e3,
                     kf_batch_bwd_measured_rate_bound_ms=measured_rate_bound_ms("composite_bwd", pairs, tops))
@@ -1734,7 +2040,7 @@ def main() -> None:
         if name == "composite_fwd":
             extra.update(live_work_bound_ms=live_work_bound_ms(pairs, 32 * live, tops),
                          cluster_blocks=cp.fwd_cluster_size(rcfg), build=fwd_build, **candidate,
-                         plan_step_profile=profile)
+                         plan_step_profile=profile, **{"1024x1024": fwd_1024}, offline_eval=offline)
         if name == "composite_bwd":
             extra.update(**kf_batch, fused_view_kernel=fused)
         if name == "composite_stats":
@@ -1754,12 +2060,14 @@ def main() -> None:
             "library_ms": None,
             "measured_rate_bound_ms": measured,
             **extra,
-            "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name]},
+            "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name],
+                                 "offline_eval": offline_launches[name]},
         })
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms data sheet, "
               f"{measured:.4f} ms at the probe's measured rates ({pairs} pairs), "
               f"{map_launches[name] / KEYFRAMES:.1f} launches per fixed-pose keyframe, "
-              f"{mission_launches[name]} in the {MISSION_STEPS}-step mission"
+              f"{mission_launches[name]} in the {MISSION_STEPS}-step mission, {offline_launches[name]} in the offline "
+              f"evaluation"
               + (f"; live-work bound {extra['live_work_bound_ms']:.4f} ms at the measured rates"
                  if "live_work_bound_ms" in extra else ""))
     for kern in cp.BF16_KERNELS:
@@ -1778,7 +2086,7 @@ def main() -> None:
             **({"live_row_share": recs[0]["live_row_share"], "build": stats_builds[kern.name]}
                if kern.name in stats_builds else {}),
             "views": recs,
-            "launches_by_path": {"cli_mission": cli_launches[kern.name]},
+            "launches_by_path": {"cli_mission": cli_launches[kern.name], "offline_eval": offline_launches[kern.name]},
         })
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})

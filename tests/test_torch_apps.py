@@ -173,10 +173,31 @@ def test_python_dash_m_runs_the_entry_point(tmp_path):
     check_experiment(out, 1)
 
 
-@pytest.mark.parametrize(
-    "override, item",
-    [("simulator=replay", "item 4"), ("use_gui=true", "item 9"), ("dump_views=true", "item 9")],
-)
+def test_main_flies_a_replay_mission_on_the_cpu(tmp_path):
+    """`simulator=replay` flies a 1-step mission from a dataset that the
+    port's `ReplaySimulator.record` made of its synthetic room."""
+    from activegs_torch.planning.paths import rotation_from_z
+    from activegs_torch.sim import ReplaySimulator
+    from activegs_torch.sim.synthetic import BoxRoomSimulator
+
+    poses = []
+    for ang in np.linspace(0, 2 * np.pi, 4, endpoint=False):
+        e = np.eye(4, dtype=np.float32)
+        e[:3, :3] = rotation_from_z(np.array([np.cos(ang), np.sin(ang), 0.0]))[0]
+        e[:3, 3] = [3.0, 2.5, 1.5]
+        poses.append(e)
+    data = str(tmp_path / "dataset")
+    ReplaySimulator.record(data, BoxRoomSimulator(resolution=(64, 64), device="cpu"), poses)
+    out = str(tmp_path / "exp")
+    argv = ["device=cpu", "simulator=replay", f"simulator.dataset_dir={data}", *CLI_OVERRIDES[:-1], "max_steps=1",
+            f"experiment.output_dir={out}"]
+    mapper = tmain.main(argv)
+    assert isinstance(mapper.simulator, ReplaySimulator) and mapper.simulator.resolution == (64, 64)
+    assert mapper.frame_id == 1 and mapper.gm_state.count > 0
+    assert check_experiment(out, 1)["simulator"]["dataset_dir"] == data
+
+
+@pytest.mark.parametrize("override, item", [("use_gui=true", "item 9"), ("dump_views=true", "item 9")])
 def test_main_refuses_what_is_not_ported(tmp_path, override, item):
     argv = ["device=cpu", override, *CLI_OVERRIDES, f"experiment.output_dir={tmp_path}"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 {item}"):
