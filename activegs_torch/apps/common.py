@@ -8,6 +8,7 @@ import sys
 
 import torch
 
+from .. import runtime
 from ..config import build_components, load_config, yaml_subset
 from ..mapping.mapper import IncrementalMapper
 from ..planning import get_planner
@@ -16,9 +17,12 @@ from ..sim import get_simulator
 
 def parse_cli(config_name: str, argv: list[str] | None = None):
     """The config `config_name` with the `key=value` arguments of `argv`
-    (default: the command line) applied."""
+    (default: the command line) applied. Joins the process group that the
+    environment describes, if it asks for one (`runtime.init_distributed`)."""
     args = sys.argv[1:] if argv is None else argv
-    return load_config(config_name, [a for a in args if "=" in a])
+    cfg = load_config(config_name, [a for a in args if "=" in a])
+    runtime.init_distributed()
+    return cfg
 
 
 def mission_device(cfg) -> torch.device:
@@ -47,9 +51,10 @@ def dump_config(cfg, path: str) -> None:
         f.write(yaml_subset.dumps(cfg.to_dict()))
 
 
-def build_mission(cfg, device):
+def build_mission(cfg, device, viewer=None):
     """(mapper, simulator, planner, typed configs) of a loaded config, on
-    `device`, the mapper wired to the simulator and the planner."""
+    `device`, the mapper wired to the simulator, the planner and
+    `viewer`."""
     comp = build_components(cfg)
     simulator = get_simulator(cfg, device=device)
     planner = get_planner(
@@ -62,6 +67,7 @@ def build_mission(cfg, device):
         keyframe_capacity=cfg.mapper.get("keyframe_capacity", 256),
         seed=cfg.get("seed", 0),
         device=device,
+        viewer=viewer,
     )
     mapper.load_simulator(simulator)
     mapper.load_planner(planner)

@@ -6,11 +6,22 @@
 Runs on the GPU; `device=cpu` runs the mission on the CPU, with the
 compositor's plain PyTorch versions. Results go to
 `<experiment.output_dir>/<exp_id>/<scene_name>/<planner_name>/<run_id>/`.
+`use_gui=true` serves a live viewer at http://127.0.0.1:<gui_port>/
+(default 8787; 0 takes a free port); `dump_views=true` writes each step's
+panels under `<experiment>/viewer/`.
+
+Over several ranks (`torchrun --nproc_per_node=N -m activegs_torch.apps.main
+...`, N a power of two dividing the batch size; ACTIVEGS_DIST_BACKEND=gloo
+for ranks that share a card) the training views and planner candidates
+are split over the ranks, and rank 0 records and serves the viewer.
 """
 
 from __future__ import annotations
 
+import os
 import sys
+
+import torch.distributed as dist
 
 from ..io.recorder import MissionRecorder
 from .common import build_mission, dump_config, experiment_path, mission_device, parse_cli
@@ -20,10 +31,18 @@ def main(argv: list[str] | None = None):
     """Fly the mission that the `key=value` arguments (default: the command
     line) configure. Returns the mapper after its last step."""
     cfg = parse_cli("main", argv)
-    for key in ("use_gui", "dump_views"):
-        if cfg.get(key, False):
-            raise NotImplementedError(f"{key}=true: the viewers (viz/) are not ported yet (ROADMAP.md, queue 1 item 9)")
     device = mission_device(cfg)
+    writes = not dist.is_initialized() or dist.get_rank() == 0
+    viewer = None
+    if writes and cfg.get("use_gui", False):
+        from ..viz.webviewer import WebViewer
+
+        viewer = WebViewer(port=int(cfg.get("gui_port", 8787)))
+        print(f" live viewer: http://127.0.0.1:{viewer.port}/")
+    elif writes and cfg.get("dump_views", False):
+        from ..viz.viewer import MissionViewer
+
+        viewer = MissionViewer(os.path.join(experiment_path(cfg), "viewer"))
 
     prewarm_steps = int(cfg.experiment.get("prewarm_steps", 0))
     if prewarm_steps > 0:
@@ -34,8 +53,8 @@ def main(argv: list[str] | None = None):
         wmapper.run(max_steps=prewarm_steps)
         del wmapper
 
-    mapper, _, _, _ = build_mission(cfg, device)
-    if not cfg.get("debug", False):
+    mapper, _, _, _ = build_mission(cfg, device, viewer=viewer)
+    if writes and not cfg.get("debug", False):
         path = experiment_path(cfg)
         dump_config(cfg, path)
         mapper.load_recorder(

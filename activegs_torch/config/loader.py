@@ -110,7 +110,8 @@ def build_components(cfg: ConfigNode) -> dict:
     ignored here too (`sparse_ratio`, `sampler_type`, `bilateral_radius`,
     and `raster` keys other than tile_h, tile_w, max_dup and bf16_pairs);
     the TPU-only `unroll_views` and `raster.interpret` are taken and
-    dropped."""
+    dropped. `resample_per_step`, which the reference's loader never reads
+    (so there it stays False), is read here with that default."""
     from ..mapping.gaussians import MapConfig
     from ..mapping.voxel_map import VoxelConfig
     from ..planning.planner import PlannerConfig
@@ -133,6 +134,7 @@ def build_components(cfg: ConfigNode) -> dict:
         opacity_lr=g.optimizer.opacity_lr,
         scale_lr=g.optimizer.scale_lr,
         harmonic_lr=g.optimizer.harmonic_lr,
+        resample_per_step=g.get("resample_per_step", False),
     )
     v = cfg.mapper.voxel_map
     voxel_cfg = VoxelConfig(

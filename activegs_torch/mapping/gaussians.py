@@ -51,6 +51,9 @@ class MapConfig:
     spawn_voxel_size: float = 0.02
     batch_size: int = 8
     active_size: int = 3
+    # draw a fresh view batch and bin it anew at every Adam step, as the
+    # original system does, instead of one batch with frozen bins a keyframe
+    resample_per_step: bool = False
     # render a train step's views through one forward and one backward
     # compositor launch (`renderer.render_views_batched`); honored where the
     # views render compacted subsets (`subset_bucket` set), as in the

@@ -7,6 +7,12 @@ stats -> train_keyframe -> stats budgets -> post_process -> write back),
 then the voxel log-odds update, then records, until the simulated-time
 budget runs out. Host code orchestrates; the heavy steps are the renderer's
 kernels and torch ops on the map's device.
+
+When `torch.distributed` is initialized with more than one rank, every rank
+runs this loop on the same inputs and seeds: training views and planner
+candidates are split over the ranks (`parallel/sharded.py`), every other
+step is computed by each rank alike, so the ranks' maps stay bitwise equal;
+only rank 0 writes through the recorder and the viewer.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..io.recorder import MissionRecorder
 from ..render.types import RasterConfig
@@ -36,10 +43,15 @@ def mapping_step(
     cfg: gm.MapConfig,
     raster_cfg: RasterConfig,
     generator: torch.Generator,
+    group=None,
 ):
     """Integrate one posed RGB-D frame into the map. Returns (state, buf,
     stats) with the loss, spawn/prune counts, truncation telemetry and
-    per-phase wall times (seconds, the device synchronized at each mark)."""
+    per-phase wall times (seconds, the device synchronized at each mark).
+    `group` (a `parallel.ViewGroup`) splits the training views over its
+    ranks. Under `cfg.resample_per_step` the batch is drawn at every step
+    inside `train_keyframe`, so there are no view stats, buckets or
+    truncation telemetry (-1)."""
     dev = state.means.device
     phase_t = {}
     t0 = time.perf_counter()
@@ -57,13 +69,16 @@ def mapping_step(
 
     cap_b = gm.bucket_capacity(state.count, cfg.capacity)
     sub = gm.slice_state(state, cap_b)
-    views = trainer.draw_batch(buf, cfg, generator)
-    max_in_view, max_entries = trainer.keyframe_view_stats(sub, buf, views[0], cfg, raster_cfg)
-    subset_bucket = trainer.pick_subset_bucket(max_in_view, cap_b)
-    entry_budget = trainer.pick_entry_bucket(max_entries)
+    views = subset_bucket = entry_budget = None
+    if not cfg.resample_per_step:
+        views = trainer.draw_batch(buf, cfg, generator)
+        max_in_view, max_entries = trainer.keyframe_view_stats(sub, buf, views[0], cfg, raster_cfg)
+        subset_bucket = trainer.pick_subset_bucket(max_in_view, cap_b)
+        entry_budget = trainer.pick_entry_bucket(max_entries)
     mark("view_stats")
     sub, buf, loss, aux = trainer.train_keyframe(
-        sub, buf, views, cfg, raster_cfg, subset_bucket=subset_bucket, entry_budget=entry_budget
+        sub, buf, views, cfg, raster_cfg, subset_bucket=subset_bucket, entry_budget=entry_budget, group=group,
+        generator=generator,
     )
     loss = float(loss)
     mark("train")
@@ -90,7 +105,7 @@ def mapping_step(
         "n_spawn_dropped": n_spawn_dropped,
         "num_dropped": num_dropped,
         "num_entries": num_entries,
-        "dropped_frac": num_dropped / max(num_dropped + num_entries, 1),
+        "dropped_frac": dropped_fraction(num_dropped, num_entries),
         "occupancy": occupancy,
         "early_prune": early_prune,
         "require_prune": require_prune,
@@ -102,11 +117,28 @@ def mapping_step(
     return state, buf, stats
 
 
+def dropped_fraction(num_dropped: int, num_entries: int) -> float:
+    """num_dropped / (num_dropped + num_entries), or -1.0 where the
+    counters were not tracked (-1, the resampling path)."""
+    if num_dropped < 0:
+        return -1.0
+    return num_dropped / max(num_dropped + num_entries, 1)
+
+
 class IncrementalMapper:
     """The mission loop: plan -> sense -> map -> voxel update -> record.
     Wire a simulator, a planner and optionally a recorder, then `init_map`
     and `step` (or `run`). Random draws come from a `torch.Generator`
-    seeded with `seed`; the planner keeps its own numpy generator."""
+    seeded with `seed`; the planner keeps its own numpy generator.
+    `viewer` (`viz.MissionViewer` or `viz.WebViewer`) gets `on_step` after
+    each step.
+
+    With `torch.distributed` initialized over more than one rank, the
+    mapper builds a `parallel.ViewGroup` of all ranks and hands it to
+    training and to the planner. The world size must be a power of two
+    that divides `MapConfig.batch_size` (the reference left the devices
+    past such a size idle; here every rank runs the whole loop, so a rank
+    cannot sit out). Every rank must pass the same seeds."""
 
     def __init__(
         self,
@@ -116,6 +148,7 @@ class IncrementalMapper:
         keyframe_capacity: int = 256,
         seed: int = 0,
         device="cuda",
+        viewer=None,
     ):
         self.map_cfg = map_cfg
         self.voxel_cfg = voxel_cfg
@@ -123,6 +156,18 @@ class IncrementalMapper:
         self.keyframe_capacity = keyframe_capacity
         self.device = torch.device(device)
         self.generator = torch.Generator().manual_seed(seed)
+        self.viewer = viewer
+        self.group = None
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            from ..parallel import sharded
+
+            world = dist.get_world_size()
+            if sharded.group_size(world, map_cfg.batch_size) != world:
+                raise ValueError(
+                    f"{world} ranks: the views split over a power of two of ranks that divides "
+                    f"batch_size {map_cfg.batch_size}"
+                )
+            self.group = sharded.make_view_group()
         self.simulator = None
         self.planner = None
         self.recorder: Optional[MissionRecorder] = None
@@ -137,6 +182,14 @@ class IncrementalMapper:
 
     def load_planner(self, planner):
         self.planner = planner
+        if self.group is not None and getattr(planner, "group", None) is None:
+            planner.group = self.group
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes through the recorder and the viewer
+        (rank 0, or the only process)."""
+        return self.group is None or self.group.rank == 0
 
     def load_recorder(self, recorder):
         self.recorder = recorder
@@ -153,7 +206,8 @@ class IncrementalMapper:
         camera path (S, 4, 4) numpy)."""
         cap_b = gm.bucket_capacity(self.gm_state.count, self.map_cfg.capacity)
         path = self.planner.plan(
-            gm.slice_state(self.gm_state, cap_b), self.vm_state, self.grid, self.simulator, self.recorder
+            gm.slice_state(self.gm_state, cap_b), self.vm_state, self.grid, self.simulator,
+            self.recorder if self.writes else None,
         )
         return self.simulator.simulate(torch.as_tensor(path[-1], device=self.device)), path
 
@@ -161,10 +215,10 @@ class IncrementalMapper:
         """One mission iteration. Returns its stats: loss, spawn / prune
         counts, truncation telemetry, mapping phase times (spawn,
         view_stats, train, post, voxel) and the planner's phase times."""
-        frame, _ = self.get_new_dataframe()
+        frame, path = self.get_new_dataframe()
         t0 = time.perf_counter()
         self.gm_state, self.keyframes, st = mapping_step(
-            self.gm_state, self.keyframes, frame, self.map_cfg, self.raster_cfg, self.generator
+            self.gm_state, self.keyframes, frame, self.map_cfg, self.raster_cfg, self.generator, self.group
         )
         phase_t = st["phase_times"]
         t1 = time.perf_counter()
@@ -174,7 +228,7 @@ class IncrementalMapper:
         t_mapping = time.perf_counter() - t0
 
         num_dropped, num_entries = st["num_dropped"], st["num_entries"]
-        dropped_frac = round(num_dropped / max(num_dropped + num_entries, 1), 5)
+        dropped_frac = round(dropped_fraction(num_dropped, num_entries), 5)
         # truncation health: both caps are survivable by design, but never
         # silent
         if dropped_frac > self.map_cfg.warn_dropped_frac:
@@ -210,7 +264,9 @@ class IncrementalMapper:
             "phase_times": {k: round(v, 3) for k, v in phase_t.items()},
             "plan_times": dict(getattr(self.planner, "last_plan_times", {})),
         }
-        if self.recorder is not None:
+        if self.viewer is not None and self.writes:
+            self.viewer.on_step(self, frame, path, stats)
+        if self.recorder is not None and self.writes:
             self.recorder.update_time("mapping", t_mapping)
             self.recorder.log_step_stats(stats)
             self.recorder.log()
@@ -223,7 +279,7 @@ class IncrementalMapper:
     def run(self, max_steps: Optional[int] = None):
         """Run the mission until the budget expires (or `max_steps`)."""
         self.init_map()
-        while self.recorder is None or self.recorder.is_alive:
+        while self.alive():
             stats = self.step()
             print(
                 f" step {stats['frame_id']}: loss {stats['loss']:.4f}, "
@@ -236,6 +292,16 @@ class IncrementalMapper:
             )
             if max_steps is not None and self.frame_id >= max_steps:
                 break
-        if self.recorder is not None:
+        if self.recorder is not None and self.writes:
             self.recorder.save_map(self.gm_state, self.map_cfg, "final")
             self.recorder.save_path()
+
+    def alive(self) -> bool:
+        """Whether the mission budget has time left: rank 0's recorder
+        decides for every rank (the ranks' clocks differ)."""
+        alive = self.recorder is None or not self.writes or self.recorder.is_alive
+        if self.group is None:
+            return alive
+        from ..parallel.sharded import broadcast_flag
+
+        return broadcast_flag(alive, self.group, self.device)

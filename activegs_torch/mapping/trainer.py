@@ -1,10 +1,13 @@
 """Per-keyframe training + post-processing for the Gaussian-surfel map
-(port of `activegs_tpu/mapping/trainer.py`, single-device path).
+(port of `activegs_tpu/mapping/trainer.py`).
 
 Each keyframe draws one view batch (`draw_batch`), bins each view once
 (frozen bins, optionally on the view's compacted in-view subset), and runs
 `optimization_steps` of render -> 4-term loss -> Adam with a fresh
-optimizer. `post_process` stats-renders keyframes for the Welford
+optimizer. With a `parallel.ViewGroup` the batch's views are split over
+the group's ranks (`parallel.sharded_train_step`). With
+`MapConfig.resample_per_step` every step draws a fresh batch and bins it
+anew instead. `post_process` stats-renders keyframes for the Welford
 confidence update and the periodic prune.
 """
 
@@ -179,16 +182,25 @@ def pick_entry_bucket(max_entries: int, min_bucket: int = 16384) -> int:
 
 
 @torch.no_grad()
-def prepare_views(state, batch, cfg: gm.MapConfig, raster_cfg: RasterConfig, subset_bucket=None, entry_budget=None):
+def prepare_views(
+    state, batch, cfg: gm.MapConfig, raster_cfg: RasterConfig, subset_bucket=None, entry_budget=None, only=None
+):
     """Frozen per-view bins (and subsets when `subset_bucket` is set) for
-    the keyframe's batch, from the state before its first step."""
+    the keyframe's batch, from the state before its first step. With
+    `only` (a range of views, a rank's share), the other views' entries
+    are None."""
     _, _, exts, intrs = batch
     h, w = batch[0].shape[-2:]
     attrs0 = gm.attrs_of(state, cfg)
     packed0 = pack_attrs(attrs0) if subset_bucket is not None else None
     bins = []
     subsets = [] if subset_bucket is not None else None
-    for ext, intr in zip(exts, intrs):
+    for i, (ext, intr) in enumerate(zip(exts, intrs)):
+        if only is not None and i not in only:
+            bins.append(None)
+            if subsets is not None:
+                subsets.append(None)
+            continue
         cam = Camera(ext, intr)
         attrs_v = attrs0
         if subset_bucket is not None:
@@ -203,38 +215,86 @@ def prepare_views(state, batch, cfg: gm.MapConfig, raster_cfg: RasterConfig, sub
 def train_keyframe(
     state: gm.GaussianMapState,
     buf: kf.KeyframeBuffer,
-    views: tuple[torch.Tensor, torch.Tensor],
+    views: tuple[torch.Tensor, torch.Tensor] | None,
     cfg: gm.MapConfig,
     raster_cfg: RasterConfig,
     steps: int | None = None,
     subset_bucket: int | None = None,
     entry_budget: int | None = None,
+    group=None,
+    generator: torch.Generator | None = None,
+    draw=None,
 ):
     """Per-keyframe optimization on the batch `views` = (ids, counts), from
     `draw_batch`: fresh Adam, `steps` iterations of render -> loss -> update
-    with the view bins frozen at the first step. Returns (state, buf, last
-    loss, aux) with aux num_dropped / num_entries summed over the drawn
-    batch (each view times its count); the sampler performance of the batch
-    frames is updated in place."""
+    with the view bins frozen at the first step. With `group` (a
+    `parallel.ViewGroup`) each rank bins and renders its share of the views
+    and the gradients are summed over the ranks (`sharded_train_step`);
+    every view renders on its own (no `render_views_batched` across ranks;
+    `fused_view_kernel` batches a rank's own views). Returns (state, buf,
+    last loss, aux) with aux num_dropped / num_entries summed over the
+    drawn batch (each view times its count); the sampler performance of the
+    batch frames is updated in place.
+
+    With `cfg.resample_per_step`, `views` is ignored: every step draws a
+    fresh batch with `draw(buf)` (default: `draw_batch` from `generator`)
+    on the performance as it stands, renders it with no frozen bins,
+    subsets or entry budget (binning runs inside each render), and aux
+    reads -1 (not tracked), as in the reference."""
     steps = cfg.optimization_steps if steps is None else steps
-    ids, counts = views
-    batch = kf.decode_frames(buf, ids)
-    bins, subsets = prepare_views(state, batch, cfg, raster_cfg, subset_bucket, entry_budget)
     params = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in PARAM_FIELDS}
     opt = make_optimizer(params, cfg)
     last_loss = torch.zeros((), device=state.means.device)
+    if cfg.resample_per_step:
+        # unsharded on every rank, as the reference's resample loop ignores
+        # its mesh: every rank draws the same batch from the same generator
+        # state, so the ranks stay in step without a collective
+        draw = draw or (lambda b: draw_batch(b, cfg, generator))
+        for _ in range(steps):
+            ids, counts = draw(buf)
+            batch = kf.decode_frames(buf, ids)
+            opt.zero_grad(set_to_none=True)
+            loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg)
+            loss.backward()
+            opt.step()
+            kf.update_performance(buf, ids, per_frame)
+            last_loss = loss.detach()
+        new_state = dataclasses.replace(state, **{k: p.detach() for k, p in params.items()})
+        return new_state, buf, last_loss, {"num_dropped": -1, "num_entries": -1}
+
+    ids, counts = views
+    batch = kf.decode_frames(buf, ids)
+    share = None
+    if group is not None:
+        from ..parallel import sharded
+
+        share = sharded.view_share(len(ids), group)
+    bins, subsets = prepare_views(state, batch, cfg, raster_cfg, subset_bucket, entry_budget, only=share)
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg, bins, subsets)
-        loss.backward()
+        if group is None:
+            loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg, bins, subsets)
+            loss.backward()
+        else:
+            loss, grads, per_frame = sharded.sharded_train_step(
+                params, state, batch, counts, group, cfg, raster_cfg, bins, subsets
+            )
+            for k, g in grads.items():
+                params[k].grad = g
         opt.step()
         kf.update_performance(buf, ids, per_frame)
         last_loss = loss.detach()
     new_state = dataclasses.replace(state, **{k: p.detach() for k, p in params.items()})
-    aux = {
-        "num_dropped": torch.sum(torch.stack([b.num_dropped for b in bins]) * counts),
-        "num_entries": torch.sum(torch.stack([b.tile_len.sum() for b in bins]) * counts),
-    }
+    # truncation telemetry over the views binned here, summed over the ranks
+    mine = [i for i, b in enumerate(bins) if b is not None]
+    tele = torch.zeros(2, dtype=torch.int64, device=state.means.device)
+    if mine:
+        c = counts[mine]
+        tele[0] = torch.sum(torch.stack([bins[i].num_dropped for i in mine]) * c)
+        tele[1] = torch.sum(torch.stack([bins[i].tile_len.sum() for i in mine]) * c)
+    if group is not None:
+        sharded.all_reduce_sum(tele, group)
+    aux = {"num_dropped": tele[0], "num_entries": tele[1]}
     return new_state, buf, last_loss, aux
 
 

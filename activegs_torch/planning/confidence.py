@@ -156,7 +156,10 @@ def utility_groups(n: int, num_gaussians: int, shape, raster_cfg, entry_budget, 
 def candidate_utilities(planner: PlanBase, gm_state, vstate, grid, candidates, simulator, explore_only):
     """Candidate (explore, exploit) utilities as numpy, with the measured
     entry budget and subset bucket; shared by the confidence and the
-    exploration planners. Returns (explore, exploit, seconds)."""
+    exploration planners. With `planner.group` the candidates are split
+    over its ranks (`parallel.sharded_candidate_utility`); the entry stats
+    run over all candidates on every rank, so every rank picks the same
+    budget and bucket. Returns (explore, exploit, seconds)."""
     h, w = (int(round(planner.cfg.render_ratio * r)) for r in simulator.resolution)
     valid_masks, _ = planner._candidate_valid_masks(candidates, simulator, (h, w))
     t0 = time.perf_counter()
@@ -168,12 +171,16 @@ def candidate_utilities(planner: PlanBase, gm_state, vstate, grid, candidates, s
     entry_budget = pick_entry_bucket(max_ents)
     subset_bucket = pick_subset_bucket(max_iv, gm_state.capacity)
     t_stats = time.perf_counter() - t0
-    explore, exploit = _confidence_utility_batch(
-        gm_state, vstate.unexplored, cands, simulator.intrinsic, valid_masks,
-        torch.tensor(simulator.depth_range, dtype=torch.float32, device=dev), grid, (h, w),
-        planner.map_cfg, planner.utility_raster_cfg,
-        entry_budget=entry_budget, explore_only=explore_only, subset_bucket=subset_bucket,
-    )
+    args = (gm_state, vstate.unexplored, cands, simulator.intrinsic, valid_masks,
+            torch.tensor(simulator.depth_range, dtype=torch.float32, device=dev))
+    rest = (grid, (h, w), planner.map_cfg, planner.utility_raster_cfg)
+    opts = dict(entry_budget=entry_budget, explore_only=explore_only, subset_bucket=subset_bucket)
+    if planner.group is not None:
+        from ..parallel.sharded import sharded_candidate_utility
+
+        explore, exploit = sharded_candidate_utility(*args, planner.group, *rest, **opts)
+    else:
+        explore, exploit = _confidence_utility_batch(*args, *rest, **opts)
     explore, exploit = explore.cpu().numpy(), exploit.cpu().numpy()
     t = time.perf_counter() - t0
     # sub-phase telemetry, merged into step_stats' plan_times by plan()

@@ -78,6 +78,9 @@ class PlanBase:
         self.pose = np.asarray(cfg.init_pose, np.float32)
         self.graph: Optional[VoxelGraph] = None
         self.initialized = False
+        # a parallel.ViewGroup: candidate utilities split over its ranks;
+        # set by IncrementalMapper.load_planner when several ranks run
+        self.group = None
         # scene-overlay stashes (filled by plan(); viewer-facing)
         self.last_candidates: Optional[np.ndarray] = None
         self.last_scores: Optional[np.ndarray] = None

@@ -6,7 +6,7 @@ Builds the hand-written kernels of the port (the three tile-compositor
 kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
 instance exported by the same source, and the two elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
-together), then drives five paths, each with the launch counters zeroed
+together), then drives six paths, each with the launch counters zeroed
 just before it and read just after:
 
 1. the mapping step (spawn -> keyframe view stats -> train_keyframe -> stats
@@ -80,7 +80,30 @@ just before it and read just after:
    times it, scores the final snapshot at 4 test poses on the card and on
    the CPU (PSNR within 1e-3 dB, SSIM 1e-5, depth MSE and the perceptual
    distance 1e-4 relative), and fuses one 1024 x 1024 render into the
-   TSDF on both (weights equal at >= 99.99% of voxels, TSDF within 1e-5).
+   TSDF on both (weights equal at >= 99.99% of voxels, TSDF within 1e-5);
+6. the last modules: (a) path 1's five keyframes with
+   `MapConfig.resample_per_step=True` (a fresh draw binned in each render
+   at every step): each keyframe's losses fall, aux reads -1, forward and
+   backward launch once per distinct view of each step's draw; one such
+   step's `batch_loss` and gradients kernel path against plain path; a
+   resampled keyframe timed against a frozen one in turns; (b) view
+   sharding on the one card: P6_RANKS ranks sharing it over gloo
+   (`torch.multiprocessing`, a free localhost port, a timeout on the
+   join), each running a `sharded_train_step` on path 1's keyframe-5 batch
+   against the single-process `batch_loss` (1e-5), path 3's last plan step
+   with its 100 candidates split over the ranks against the single-process
+   utilities (1e-6), and a 2-step confidence-planner mission at full width
+   whose maps and paths must be bitwise equal on every rank; then one rank
+   over NCCL, whose step must be bitwise the single-process one; (c) the
+   viewers: `apps.main.main()` with `dump_views=true` for 2 steps,
+   `apps.visualize.main()` on path 4's final map (8 views at 512x512), a
+   `WebViewer` on a free port during a 1-step mission with every endpoint
+   fetched; the viewers must launch the forward kernel and no other, and
+   one 512x512 panel through the kernel must be within 1 in uint8 at >=
+   99.9% of values (2 everywhere) of the plain version's; (d) path 3's
+   final map through `state_to_reference`, `convert` and
+   `load_gaussian_map`, bitwise. (b)'s inputs are kept from paths 1 and 3
+   in the git-ignored `build/path6/`, and (d) runs right after path 3.
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -221,7 +244,8 @@ def poses(dev):
 
 def main_path(dev):
     """Path 1: KEYFRAMES mapping steps at full width. Returns (state, buf,
-    {kernel: launches in the run}, map config, raster config)."""
+    {kernel: launches in the run}, map config, raster config, the
+    keyframe-1 pose's PSNR after the run)."""
     from activegs_torch.mapping import gaussians as gm
     from activegs_torch.mapping import keyframes as kf
     from activegs_torch.mapping.mapper import mapping_step
@@ -269,7 +293,7 @@ def main_path(dev):
     psnr_after = render_psnr(state, frames[0])
     print(f"keyframe-1 pose PSNR: spawn only {psnr_before:.3f} dB, after the run {psnr_after:.3f} dB")
     check(psnr_after > psnr_before, "training did not raise PSNR at keyframe 1's pose")
-    return state, buf, launches, cfg, rcfg
+    return state, buf, launches, cfg, rcfg, psnr_after
 
 
 def real_pairs(tile_len: torch.Tensor, stop: torch.Tensor, k: int, p: int) -> int:
@@ -1952,6 +1976,529 @@ def offline_eval_phase(dev, tops: dict) -> tuple[dict, dict, dict]:
     return fwd, launches, rec
 
 
+P6_DIR = Path("build/path6")
+P6_RANKS = 2
+P6_MISSION_STEPS = 2
+P6_JOIN_S = 600
+VIEWER_EXP = ["experiment.output_dir=build/viewer_mission", "experiment.exp_id=chip_smoke"]
+
+
+def uint8_close(got, want) -> tuple[int, float]:
+    """(max |difference|, share within 1) of two uint8 images."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), float(np.mean(d <= 1))
+
+
+def map_digest(state) -> str:
+    import hashlib
+
+    from activegs_torch.mapping import gaussians as gm
+
+    return hashlib.sha256(b"".join(v.tobytes() for v in gm.state_to_numpy(state).values())).hexdigest()
+
+
+@torch.no_grad()
+def export_keyframe_batch(state, buf, cfg, rcfg) -> None:
+    """Path 6 (b)'s first input, kept from path 1: keyframe 5's map (sliced
+    to its bucket), its drawn batch (seed SEED), decoded, and the batch's
+    subset bucket and entry budget, into P6_DIR/keyframe.pt."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+
+    sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
+    ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(SEED))
+    max_iv, max_e = trainer.keyframe_view_stats(sub, buf, ids, cfg, rcfg)
+    P6_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save({
+        "state": gm.state_to_numpy(sub), "capacity": sub.capacity, "cfg": cfg, "rcfg": rcfg,
+        "batch": [x.cpu() for x in kf.decode_frames(buf, ids)], "counts": counts.cpu(),
+        "subset_bucket": trainer.pick_subset_bucket(max_iv, sub.capacity),
+        "entry_budget": trainer.pick_entry_bucket(max_e),
+    }, P6_DIR / "keyframe.pt")
+
+
+@torch.no_grad()
+def export_plan_step(mapper) -> None:
+    """Path 6 (b)'s second input, kept from path 3: the mission's last plan
+    step as its utility renders see it (`plan_step_views`), into
+    P6_DIR/plan_step.pt."""
+    from activegs_torch.mapping import gaussians as gm
+
+    state, cands, shape, rcfg, budget, bucket = plan_step_views(mapper)
+    planner, sim = mapper.planner, mapper.simulator
+    masks, _ = planner._candidate_valid_masks(planner.last_candidates, sim, shape)
+    torch.save({
+        "state": gm.state_to_numpy(state), "capacity": state.capacity, "cands": cands.cpu(), "shape": shape,
+        "rcfg": rcfg, "budget": budget, "bucket": bucket, "masks": masks.cpu(), "map_cfg": planner.map_cfg,
+        "intrinsic": sim.intrinsic.cpu(), "depth_range": list(sim.depth_range), "grid": mapper.grid,
+        "unexplored": mapper.vm_state.unexplored.cpu(),
+    }, P6_DIR / "plan_step.pt")
+
+
+def checkpoint_phase(mapper) -> dict:
+    """Path 6 (d): the mission's final map written as a checkpoint of the
+    original system (`state_to_reference`), converted back to npz
+    (`convert`) and loaded on the card (`load_gaussian_map`): every field
+    bitwise the map's. No kernel runs."""
+    from activegs_torch.io import checkpoint, convert_reference
+
+    P6_DIR.mkdir(parents=True, exist_ok=True)
+    state, th, npz = mapper.gm_state, P6_DIR / "map_final.th", P6_DIR / "map_final.npz"
+    t0 = time.perf_counter()
+    convert_reference.state_to_reference(state, mapper.map_cfg, str(th))
+    n = convert_reference.convert(str(th), str(npz))
+    back, _ = checkpoint.load_gaussian_map(str(npz), device=state.means.device)
+    same = n == state.count == back.count and all(
+        torch.equal(getattr(back, f)[:n], getattr(state, f)[:n]) for f in ("means", "scales_raw", "rotations_raw",
+                                                                             "opacities_raw", "colors", "view_scores",
+                                                                             "view_supports", "view_means"))
+    dt = time.perf_counter() - t0
+    print(f"reference checkpoint: mission final map ({n} gaussians) -> {th.name} ({th.stat().st_size} bytes) -> "
+          f"{npz.name} -> load_gaussian_map on {back.means.device} in {dt:.2f} s; every field bitwise: {same}")
+    check(same, "the reference checkpoint round trip changed the map")
+    return {"gaussians": n, "seconds": dt}
+
+
+def resample_phase(dev, psnr_frozen: float) -> dict:
+    """Path 6 (a): path 1's five fixed-pose keyframes with
+    `MapConfig.resample_per_step=True`, every kernel's counter zeroed
+    before and read after. Checks that each keyframe's step losses fall,
+    that aux reads -1, and that each keyframe launched forward and backward
+    once per distinct view of each step's draw. Then, outside the counted
+    run: one resampled step's `batch_loss` value and gradients on the final
+    map, kernel path against plain path; a resampled keyframe timed
+    against a frozen one in turns; the keyframe-1 pose PSNR against path
+    1's. Returns the path's record."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.mapping.mapper import mapping_step
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.renderer import render_view
+    from activegs_torch.render.types import Camera, RasterConfig
+    from activegs_torch.sim.synthetic import BoxRoomSimulator
+
+    cfg, rcfg = gm.MapConfig(resample_per_step=True), RasterConfig()
+    sim = BoxRoomSimulator(resolution=(RES, RES), seed=SEED, device=dev)
+    frames = [sim.simulate(p) for p in poses(dev)]
+    state, buf = gm.init_state(cfg, dev), kf.init_buffer(256, RES, RES, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    train, draw, loss_fn = trainer.train_keyframe, trainer.draw_batch, trainer.batch_loss
+    draws, losses, per_kf = [], [], []
+
+    def counted_train(*a, **k):
+        draws.clear()
+        losses.clear()
+        n0 = (cp.fwd_kernel.launches, cp.bwd_kernel.launches)
+        out = train(*a, **k)
+        per_kf.append({"fwd": cp.fwd_kernel.launches - n0[0], "bwd": cp.bwd_kernel.launches - n0[1],
+                       "views": list(draws), "losses": [float(x) for x in losses]})
+        return out
+
+    def counted_draw(*a, **k):
+        ids, counts = draw(*a, **k)
+        draws.append(len(ids))
+        return ids, counts
+
+    def counted_loss(*a, **k):
+        out = loss_fn(*a, **k)
+        losses.append(out[0].detach())
+        return out
+
+    for k in (*cp.KERNELS, *cp.BF16_KERNELS):
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer, "train_keyframe", counted_train), \
+            mock.patch.object(trainer, "draw_batch", counted_draw), mock.patch.object(trainer, "batch_loss", counted_loss):
+        for i, f in enumerate(frames):
+            state, buf, st = mapping_step(state, buf, f, cfg, rcfg, gen)
+            rec = per_kf[-1]
+            print(f"resampled keyframe {i + 1}: loss {rec['losses'][0]:.5f} -> {st['loss']:.5f} gaussians "
+                  f"{st['n_gaussians']} num_dropped {st['num_dropped']} views a step {rec['views']} launches fwd "
+                  f"{rec['fwd']} bwd {rec['bwd']} | "
+                  + " ".join(f"{k} {v:.3f}s" for k, v in st["phase_times"].items()))
+            check(math.isfinite(st["loss"]) and st["num_dropped"] == -1 and st["num_entries"] == -1,
+                  f"resampled keyframe {i + 1}: loss {st['loss']}, aux {st['num_dropped']} {st['num_entries']}")
+            check(len(rec["views"]) == cfg.optimization_steps and rec["fwd"] == rec["bwd"] == sum(rec["views"]),
+                  f"resampled keyframe {i + 1}: launches fwd {rec['fwd']} bwd {rec['bwd']} for draws {rec['views']}")
+            check(rec["losses"][-1] < rec["losses"][0], f"resampled keyframe {i + 1}: losses did not fall "
+                  f"{rec['losses']}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)}
+    print(f"resampled path: {KEYFRAMES} keyframes in {wall:.2f} s, launches {launches}")
+    check(all(launches[k.name] > 0 for k in cp.KERNELS), f"resampled path: a kernel was not launched: {launches}")
+
+    # one resampled step, kernel path against plain path
+    sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
+    ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(SEED))
+    batch = kf.decode_frames(buf, ids)
+
+    def loss_grads():
+        params = {k: getattr(sub, k).detach().clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}
+        loss, _ = trainer.batch_loss(params, sub, batch, counts, cfg, rcfg)
+        return float(loss.detach()), torch.autograd.grad(loss, list(params.values()))
+
+    lk, gk = loss_grads()
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain), \
+            mock.patch.object(cp, "composite_bwd", cp.composite_bwd_plain):
+        lp, gp = loss_grads()
+    e_loss = abs(lk - lp) / abs(lp)
+    errs = [float(torch.linalg.vector_norm(a - p) / torch.linalg.vector_norm(p)) for a, p in zip(gk, gp)]
+    print(f"resampled batch_loss ({len(ids)} views, binned in each render): kernel {lk:.7f} plain {lp:.7f} rel err "
+          f"{e_loss:.3g}; grad rel L2 err " + " ".join(f"{n} {e:.3g}" for n, e in zip(trainer.PARAM_FIELDS, errs)))
+    check(e_loss <= 1e-5 and max(errs) <= 1e-3, "the resampled batch_loss through the kernels disagrees with plain")
+
+    # a resampled keyframe against a frozen one, in turns, on the final map
+    frozen_cfg = dataclasses.replace(cfg, resample_per_step=False)
+    perf = buf.performance.clone()
+
+    def keyframe(resample: bool) -> float:
+        buf.performance.copy_(perf)
+        g = torch.Generator().manual_seed(SEED)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if resample:
+            trainer.train_keyframe(sub, buf, None, cfg, rcfg, generator=g)
+        else:
+            views = trainer.draw_batch(buf, frozen_cfg, g)
+            max_iv, max_e = trainer.keyframe_view_stats(sub, buf, views[0], frozen_cfg, rcfg)
+            trainer.train_keyframe(sub, buf, views, frozen_cfg, rcfg,
+                                   subset_bucket=trainer.pick_subset_bucket(max_iv, sub.capacity),
+                                   entry_budget=trainer.pick_entry_bucket(max_e))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    times = {True: [], False: []}
+    for resample in (False, True, True, False, False, True):
+        times[resample].append(keyframe(resample))
+    t_res, t_frz = statistics.median(times[True]), statistics.median(times[False])
+    buf.performance.copy_(perf)
+
+    o, _ = render_view(gm.attrs_of(state, cfg), Camera(frames[0]["extrinsic"], frames[0]["intrinsic"]), (RES, RES), rcfg)
+    psnr_res = psnr(o.rgb, frames[0]["rgb"])
+    print(f"resampled keyframe (10 steps, a fresh draw binned each step) {t_res:.3f} s against frozen (view stats + "
+          f"one binning) {t_frz:.3f} s, median of 3 in turns (x{t_res / t_frz:.2f}); keyframe-1 pose PSNR after "
+          f"the run {psnr_res:.3f} dB (frozen path 1: {psnr_frozen:.3f} dB)")
+    return {"launches": launches, "wall_s": wall, "keyframes": per_kf, "keyframe_s": {"resampled": t_res,
+            "frozen": t_frz}, "psnr_db": psnr_res, "psnr_frozen_db": psnr_frozen,
+            "batch_loss_rel_err": e_loss, "grad_rel_l2_err": max(errs)}
+
+
+def sharded_rank(rank: int, port: int) -> None:
+    """Path 6 (b), one of P6_RANKS ranks sharing the card over gloo (run by
+    `torch.multiprocessing`): joins the group through
+    `runtime.init_distributed`, then on path 1's keyframe-5 batch one
+    `sharded_train_step` (bins built for its share only) against the
+    single-process `batch_loss`; on path 3's last plan step
+    `sharded_candidate_utility` against `_confidence_utility_batch`; then a
+    P6_MISSION_STEPS-step confidence-planner mission at full width through
+    `IncrementalMapper`, whose map digest it compares with rank 0's.
+    Writes its record to P6_DIR/rank<rank>.json."""
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(P6_RANKS), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), ACTIVEGS_DIST_BACKEND="gloo")
+    import torch.distributed as dist
+
+    from activegs_torch import runtime
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import trainer
+    from activegs_torch.mapping import voxel_map as vm
+    from activegs_torch.mapping.mapper import IncrementalMapper
+    from activegs_torch.parallel import sharded
+    from activegs_torch.planning import ConfidencePlanner, PlannerConfig
+    from activegs_torch.planning import confidence as cf
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import RasterConfig
+    from activegs_torch.sim.synthetic import BoxRoomSimulator
+
+    check(runtime.init_distributed(), "init_distributed refused the environment")
+    dev = torch.device("cuda")
+    group = sharded.make_view_group()
+    rec = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+
+    def launches():
+        return {k.name: k.launches for k in cp.KERNELS}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # one sharded step on keyframe 5's batch
+    d = torch.load(P6_DIR / "keyframe.pt", weights_only=False)
+    state = gm.state_from_numpy(d["state"], dev, capacity=d["capacity"])
+    batch, counts, cfg, rcfg = [x.to(dev) for x in d["batch"]], d["counts"].to(dev), d["cfg"], d["rcfg"]
+    share = sharded.view_share(len(counts), group)
+    leaves = lambda: {k: getattr(state, k).clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}  # noqa: E731
+    bins, subsets = trainer.prepare_views(state, batch, cfg, rcfg, d["subset_bucket"], d["entry_budget"], only=share)
+    n0 = launches()
+    (loss, grads, per_frame), step_ms = timed(
+        lambda: sharded.sharded_train_step(leaves(), state, batch, counts, group, cfg, rcfg, bins, subsets))
+    step_launches = {k: v - n0[k] for k, v in launches().items()}
+    all_bins, all_subsets = trainer.prepare_views(state, batch, cfg, rcfg, d["subset_bucket"], d["entry_budget"])
+    p = leaves()
+    (loss1, pf1), single_ms = timed(lambda: trainer.batch_loss(p, state, batch, counts, cfg, rcfg, all_bins,
+                                                                all_subsets))
+    g1 = torch.autograd.grad(loss1, list(p.values()))
+    loss1 = loss1.detach()
+    scaled = max(float((grads[k] - g).abs().max() / g.abs().max().clamp(min=1e-12))
+                 for k, g in zip(trainer.PARAM_FIELDS, g1))
+    rec["step"] = {"views": len(counts), "share": [share.start, share.stop], "ms": step_ms, "single_ms": single_ms,
+                   "loss": float(loss), "loss_rel_err": abs(float(loss) - float(loss1)) / abs(float(loss1)),
+                   "grad_scaled_err": scaled, "per_frame_err": float((per_frame - pf1).abs().max()),
+                   "launches": step_launches}
+    del d, state, batch, bins, subsets, all_bins, all_subsets, grads, g1, p
+
+    # one plan step's candidates, split over the ranks
+    d = torch.load(P6_DIR / "plan_step.pt", weights_only=False)
+    state = gm.state_from_numpy(d["state"], dev, capacity=d["capacity"])
+    args = (state, d["unexplored"].to(dev), d["cands"].to(dev), d["intrinsic"].to(dev), d["masks"].to(dev),
+            torch.tensor(d["depth_range"], dtype=torch.float32, device=dev))
+    rest = (d["grid"], d["shape"], d["map_cfg"], d["rcfg"])
+    opts = {"entry_budget": d["budget"], "subset_bucket": d["bucket"]}
+    n0 = launches()
+    (e_s, x_s), util_ms = timed(lambda: sharded.sharded_candidate_utility(*args, group, *rest, **opts))
+    util_launches = {k: v - n0[k] for k, v in launches().items()}
+    e_1, x_1 = cf._confidence_utility_batch(*args, *rest, **opts)
+    rec["utility"] = {"candidates": len(d["cands"]), "share": len(sharded.view_share(len(d["cands"]), group)),
+                      "ms": util_ms, "explore_err": float((e_s - e_1).abs().max()),
+                      "exploit_err": float((x_s - x_1).abs().max()), "launches": util_launches}
+    del d, state, args
+
+    # a mission on every rank
+    map_cfg, voxel_cfg, raster_cfg = gm.MapConfig(), vm.VoxelConfig(), RasterConfig()
+    planner = ConfidencePlanner(PlannerConfig(), map_cfg, voxel_cfg, raster_cfg, seed=SEED)
+    mapper = IncrementalMapper(map_cfg, voxel_cfg, raster_cfg, seed=SEED, device=dev)
+    mapper.load_simulator(BoxRoomSimulator(resolution=(RES, RES), seed=SEED, device=dev))
+    mapper.load_planner(planner)
+    mapper.init_map()
+    check(mapper.group is not None and planner.group is mapper.group, "the mapper built no view group")
+    n0, explored, steps_s, poses_ = launches(), [], [], []
+    for _ in range(P6_MISSION_STEPS):
+        _, ms = timed(mapper.step)
+        steps_s.append(ms / 1e3)
+        explored.append(1.0 - float(mapper.vm_state.unexplored.float().mean()))
+        poses_.append([float(v) for v in planner.pose[:3, 3]])
+    digest = map_digest(mapper.gm_state)
+    mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.int32, device=dev)
+    rank0 = sharded.all_reduce_sum(mine.clone() if rank == 0 else torch.zeros_like(mine), group)
+    rec["mission"] = {"steps_s": steps_s, "explored": explored, "poses": poses_, "digest": digest[:16],
+                      "gaussians": mapper.gm_state.count, "same_map_as_rank0": bool(torch.equal(mine, rank0)),
+                      "launches": {k: v - n0[k] for k, v in launches().items()}}
+    (P6_DIR / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def sharded_phase(card: str) -> dict:
+    """Path 6 (b): P6_RANKS ranks sharing the card over gloo
+    (`sharded_rank`, spawned with `torch.multiprocessing` on a free
+    localhost port, joined with a timeout), then one rank over NCCL in this
+    process: the keyframe-5 step through `sharded_train_step` must be
+    bitwise the single-process step. Returns the path's record."""
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import trainer
+    from activegs_torch.parallel import sharded
+    from activegs_torch.render import composite as cp
+
+    for r in range(P6_RANKS):
+        (P6_DIR / f"rank{r}.json").unlink(missing_ok=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = tmp.spawn(sharded_rank, args=(port,), nprocs=P6_RANKS, join=False)
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < P6_JOIN_S, f"the sharded ranks did not finish in {P6_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    recs = [json.loads((P6_DIR / f"rank{r}.json").read_text()) for r in range(P6_RANKS)]
+    for r in recs:
+        st, ut, mi = r["step"], r["utility"], r["mission"]
+        print(f"sharded rank {r['rank']} of {r['world']} ({r['backend']}, {P6_RANKS} ranks sharing one card: no "
+              f"speed-up; {card}): step over views {st['share']} of {st['views']} in {st['ms']:.1f} ms (single "
+              f"process {st['single_ms']:.1f} ms for the loss), loss rel err {st['loss_rel_err']:.3g}, grads "
+              f"{st['grad_scaled_err']:.3g} scaled, launches {st['launches']}; utilities {ut['share']} of "
+              f"{ut['candidates']} candidates in {ut['ms']:.1f} ms, explore err {ut['explore_err']:.3g} exploit "
+              f"{ut['exploit_err']:.3g}, launches {ut['launches']}; mission steps {mi['steps_s']} s, explored "
+              f"{mi['explored']}, pose {mi['poses'][-1]}, map {mi['digest']} ({mi['gaussians']} gaussians), same "
+              f"as rank 0 {mi['same_map_as_rank0']}, launches {mi['launches']}")
+        check(st["loss_rel_err"] <= 1e-5 and st["grad_scaled_err"] <= 1e-5,
+              f"rank {r['rank']}: the sharded step disagrees with the single-process one")
+        check(ut["explore_err"] <= 1e-6 and ut["exploit_err"] <= 1e-6,
+              f"rank {r['rank']}: the sharded utilities disagree with the single-process ones")
+        check(mi["same_map_as_rank0"] and mi["poses"] == recs[0]["mission"]["poses"],
+              f"rank {r['rank']}: the mission's map or path differs from rank 0's")
+        check(mi["explored"][-1] > mi["explored"][0], f"rank {r['rank']}: exploration did not rise {mi['explored']}")
+        check(all(mi["launches"][k.name] > 0 for k in cp.KERNELS), f"rank {r['rank']}: a kernel was not launched "
+              f"in the sharded mission: {mi['launches']}")
+    check(len({r["step"]["loss"] for r in recs}) == 1, "the ranks disagree on the step's loss")
+
+    # one rank over NCCL: bitwise the single-process step
+    d = torch.load(P6_DIR / "keyframe.pt", weights_only=False)
+    dev = torch.device("cuda")
+    state = gm.state_from_numpy(d["state"], dev, capacity=d["capacity"])
+    batch, counts, cfg, rcfg = [x.to(dev) for x in d["batch"]], d["counts"].to(dev), d["cfg"], d["rcfg"]
+    bins, subsets = trainer.prepare_views(state, batch, cfg, rcfg, d["subset_bucket"], d["entry_budget"])
+    leaves = lambda: {k: getattr(state, k).clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}  # noqa: E731
+    p = leaves()
+    loss1, pf1 = trainer.batch_loss(p, state, batch, counts, cfg, rcfg, bins, subsets)
+    g1 = torch.autograd.grad(loss1, list(p.values()))
+    n0 = {k.name: k.launches for k in cp.KERNELS}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads, pf = sharded.sharded_train_step(leaves(), state, batch, counts, sharded.ViewGroup(None, 0, 1),
+                                                     cfg, rcfg, bins, subsets)
+        torch.cuda.synchronize()
+        nccl_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        dist.destroy_process_group()
+    nccl_launches = {k.name: k.launches - n0[k.name] for k in cp.KERNELS}
+    bitwise = torch.equal(loss, loss1.detach()) and torch.equal(pf, pf1) and all(
+        torch.equal(grads[k], g) for k, g in zip(trainer.PARAM_FIELDS, g1))
+    print(f"sharded step over one NCCL rank ({len(counts)} views, {nccl_ms:.1f} ms, launches {nccl_launches}): "
+          f"bitwise the single-process step: {bitwise}")
+    check(bitwise, "one NCCL rank's step is not bitwise the single-process step")
+    total = {k.name: sum(r[part]["launches"][k.name] for r in recs for part in ("step", "utility", "mission"))
+             for k in cp.KERNELS}
+    return {"ranks": recs, "wall_s": wall, "nccl_ms": nccl_ms, "nccl_bitwise": bitwise,
+            "launches": {k: total[k] + nccl_launches[k] for k in total}}
+
+
+def viewer_phase(dev) -> dict:
+    """Path 6 (c): the viewers at full width, every kernel's counter zeroed
+    before and read after, the viewers' own launches counted apart from
+    the missions': a 2-step mission from `apps.main.main()` with
+    `dump_views=true` (panels read back with zlib); `apps.visualize.main()`
+    on path 4's final map (8 orbit views at 512x512); a `WebViewer` on a
+    free localhost port during a 1-step mission (`use_gui=true
+    gui_port=0`), every endpoint fetched with urllib. Checks that the
+    viewers launched the forward kernel and no other. Then one 512x512
+    panel through the kernel against the same through the plain version.
+    Returns the path's record."""
+    import glob
+    import urllib.request
+
+    import numpy as np
+
+    from activegs_torch.apps import main as app
+    from activegs_torch.apps import visualize
+    from activegs_torch.core import geometry as geo
+    from activegs_torch.io import checkpoint
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import Camera, RasterConfig
+    from activegs_torch.viz import viewer as tview
+    from activegs_torch.viz.webviewer import WebViewer
+
+    kernels = (*cp.KERNELS, *cp.BF16_KERNELS)
+    counts = lambda: {k.name: k.launches for k in kernels}  # noqa: E731
+    viewer_launches = {k.name: 0 for k in kernels}
+
+    def counted(fn):
+        def run(*a, **k):
+            n0 = counts()
+            out = fn(*a, **k)
+            for name, v in counts().items():
+                viewer_launches[name] += v - n0[name]
+            return out
+        return run
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(tview.MissionViewer, "on_step", counted(tview.MissionViewer.on_step)), \
+            mock.patch.object(WebViewer, "on_step", counted(WebViewer.on_step)):
+        t = time.perf_counter()
+        app.main(["dump_views=true", "max_steps=2", *VIEWER_EXP])
+        t_dump = time.perf_counter() - t
+        panels = sorted(glob.glob("build/viewer_mission/chip_smoke/*/*/*/viewer/*.png"))
+        names = [Path(p).name for p in panels]
+        check(names == ["channels_001.png", "channels_002.png", "voxels_001.png", "voxels_002.png"],
+              f"dump_views wrote {names}")
+        shapes = [png_pixels(p).shape for p in panels]
+        check(shapes[0] == (512, 768, 3), f"dump_views panel shape {shapes[0]}")
+
+        maps = glob.glob(OFFLINE_EXP[0].split("=")[1] + "/chip_smoke/*/*/*/map/map_final.npz")
+        check(len(maps) == 1, f"path 4's final map: {maps}")
+        t = time.perf_counter()
+        written = counted(visualize.main)(["--map", maps[0], "--out", "build/visualize", "--views", "8",
+                                           "--resolution", str(RES)])
+        t_vis = time.perf_counter() - t
+        check(len(written) == 8 and all(png_pixels(p).shape == (2 * RES, 3 * RES, 3) for p in written),
+              f"visualize wrote {written}")
+
+        mapper = app.main(["use_gui=true", "gui_port=0", "max_steps=1", "debug=true"])
+        viewer = mapper.viewer
+        try:
+            base = f"http://127.0.0.1:{viewer.port}"
+            fetched = {}
+
+            @counted
+            def get(path):
+                with urllib.request.urlopen(base + path, timeout=60) as r:
+                    fetched[path] = (r.status, r.headers.get("Content-Type"), r.read())
+                return fetched[path]
+
+            t = time.perf_counter()
+            for path in ("/", "/stats.json", "/panel.png", "/voxel.png", "/scene.png", "/fly.png",
+                         "/fly.png?dx=0.3&yaw=0.2&chan=depth", "/fly.png?chan=d2n",
+                         "/fly.png?chan=opacity&conf_min=0.5&scale_mod=0.5", "/record_pose?dz=-0.3", "/poses.json"):
+                get(path)
+            t_web = time.perf_counter() - t
+        finally:
+            viewer.close()
+        stats = json.loads(fetched["/stats.json"][2])
+        check(all(c == 200 for c, _, _ in fetched.values()), f"web viewer status {[c for c, _, _ in fetched.values()]}")
+        check(all(b[:8] == b"\x89PNG\r\n\x1a\n" for p, (_, _, b) in fetched.items() if ".png" in p),
+              "a web viewer image is not a PNG")
+        check(stats["frame_id"] == 1 and all(math.isfinite(v) for v in stats.values() if isinstance(v, float)),
+              f"web viewer stats {stats}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    print(f"viewers: dump_views mission (2 steps) {t_dump:.2f} s, panels {names}; visualize 8 views at {RES}x{RES} "
+          f"{t_vis:.2f} s; web viewer {len(fetched)} endpoints in {t_web:.2f} s (port {viewer.port}, stats frame "
+          f"{stats['frame_id']}, loss {stats['loss']:.5f}); launches by the viewers {viewer_launches}, by the whole "
+          f"path {launches} ({wall:.2f} s)")
+    check(viewer_launches["composite_fwd"] > 0 and all(v == 0 for k, v in viewer_launches.items()
+                                                       if k != "composite_fwd"),
+          f"the viewers launched other kernels than the forward one: {viewer_launches}")
+
+    # one 512x512 panel, the kernel against the plain version
+    state, cfg = checkpoint.load_gaussian_map(maps[0], device=dev)
+    means = state.means[: state.count].cpu().numpy()
+    radius = 0.6 * float(np.linalg.norm(means.max(0) - means.min(0)))
+    pose = visualize.orbit_poses(means.mean(0), radius, 0.3 * radius, 8)[0]  # visualize's first view
+    cam = Camera(torch.as_tensor(pose, device=dev), geo.intrinsics_from_fov(60.0, 60.0, device=dev))
+    p_k = tview.render_channel_panel(state, cfg, cam, (RES, RES), RasterConfig())
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain):
+        p_p = tview.render_channel_panel(state, cfg, cam, (RES, RES), RasterConfig())
+    worst, share = uint8_close(p_k, p_p)
+    print(f"viewer panel {RES}x{RES}, kernel against plain: max uint8 diff {worst}, within 1 at {share:.6f} of "
+          f"values, bitwise at {float(np.mean(p_k == p_p)):.6f}")
+    check(worst <= 2 and share >= 0.999, "the viewer panel through the kernel disagrees with the plain version")
+    return {"launches": launches, "viewer_launches": viewer_launches, "wall_s": wall, "dump_views_s": t_dump,
+            "visualize_s": t_vis, "web_s": t_web, "panel_max_diff": worst, "panel_within_1": share}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -1981,7 +2528,7 @@ def main() -> None:
             print(f"  {name}: {func}: {regs} registers, {spills} bytes spilled")
 
     dev = torch.device("cuda")
-    state, buf, map_launches, cfg, rcfg = main_path(dev)
+    state, buf, map_launches, cfg, rcfg, psnr_kf1 = main_path(dev)
     fwd_build = kernel_build(cp, "composite_fwd", rcfg)
     print(f"composite_fwd build: {fwd_build}")
     errs, inputs, (live, rows), views = compare(state, buf, cfg, rcfg)
@@ -1991,6 +2538,7 @@ def main() -> None:
         print(f"{name} build: {build}")
     kf_batch = keyframe_batched_phase(state, buf, cfg, rcfg)
     fused = fused_check(state, buf, cfg, rcfg)
+    export_keyframe_batch(state, buf, cfg, rcfg)
     del state, buf
     torch.cuda.empty_cache()
     probes, tops = probe_phase(dev)
@@ -2009,10 +2557,19 @@ def main() -> None:
     views["composite_fwd"].update(cand_view)
     profile = plan_step_profile(mapper)
     bf16 = bf16_phase(views, plan_grid, tops)
+    export_plan_step(mapper)
+    p6_checkpoint = checkpoint_phase(mapper)
     del mapper, plan_grid
     torch.cuda.empty_cache()
     cli_launches = cli_mission_phase()
     fwd_1024, offline_launches, offline = offline_eval_phase(dev, tops)
+    torch.cuda.empty_cache()
+    p6 = {"resample": resample_phase(dev, psnr_kf1)}
+    torch.cuda.empty_cache()
+    p6["sharded"] = sharded_phase(card)
+    p6["viewers"] = viewer_phase(dev)
+    p6["checkpoint"] = p6_checkpoint
+    p6_launches = {part: rec["launches"] for part, rec in p6.items() if "launches" in rec}
     pairs = kf_batch["kf_batch_pairs"]
     kf_batch.update(kf_batch_bwd_bound_ms=pairs * OPS_PER_PAIR["composite_bwd"] / PEAK_FP32_FLOPS * 1e3,
                     kf_batch_bwd_measured_rate_bound_ms=measured_rate_bound_ms("composite_bwd", pairs, tops))
@@ -2061,7 +2618,8 @@ def main() -> None:
             "measured_rate_bound_ms": measured,
             **extra,
             "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name],
-                                 "offline_eval": offline_launches[name]},
+                                 "offline_eval": offline_launches[name],
+                                 **{part: n.get(name, 0) for part, n in p6_launches.items()}},
         })
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms data sheet, "
               f"{measured:.4f} ms at the probe's measured rates ({pairs} pairs), "
@@ -2086,7 +2644,8 @@ def main() -> None:
             **({"live_row_share": recs[0]["live_row_share"], "build": stats_builds[kern.name]}
                if kern.name in stats_builds else {}),
             "views": recs,
-            "launches_by_path": {"cli_mission": cli_launches[kern.name], "offline_eval": offline_launches[kern.name]},
+            "launches_by_path": {"cli_mission": cli_launches[kern.name], "offline_eval": offline_launches[kern.name],
+                                 **{part: n.get(kern.name, 0) for part, n in p6_launches.items()}},
         })
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
@@ -2094,6 +2653,8 @@ def main() -> None:
         stats_schedule_phase(views["composite_stats"])
     if args.parent:
         parent_in_turns(views, args.parent)
+    print("path 6: " + json.dumps({part: {k: v for k, v in rec.items() if k not in ("ranks", "keyframes")}
+                                     for part, rec in p6.items()}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

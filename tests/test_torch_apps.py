@@ -199,9 +199,19 @@ def test_main_flies_a_replay_mission_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("override, item", [("use_gui=true", "item 9"), ("dump_views=true", "item 9")])
 def test_main_refuses_what_is_not_ported(tmp_path, override, item):
-    argv = ["device=cpu", override, *CLI_OVERRIDES, f"experiment.output_dir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 {item}"):
-        tmain.main(argv)
+    """The viewers (ROADMAP.md, queue 1 `item`) are ported, so `main`
+    refuses neither option any more: a 1-step mission runs with the live
+    viewer (on a free port) or the panel dump attached
+    (`tests/test_torch_viz.py` checks what they serve and write)."""
+    argv = ["device=cpu", override, "gui_port=0", *CLI_OVERRIDES[:-1], "max_steps=1",
+            f"experiment.output_dir={tmp_path}"]
+    mapper = tmain.main(argv)
+    try:
+        assert mapper.frame_id == 1
+        assert type(mapper.viewer).__name__ == {"use_gui=true": "WebViewer", "dump_views=true": "MissionViewer"}[override]
+    finally:
+        if hasattr(mapper.viewer, "close"):
+            mapper.viewer.close()
 
 
 def test_main_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):

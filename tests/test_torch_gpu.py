@@ -671,3 +671,136 @@ def test_tsdf_integrate_on_the_card_matches_the_cpu(cuda):
     same = out["cuda"]["weight"] == out["cpu"]["weight"]
     assert same.mean() >= 0.9999 and out["cpu"]["weight"].sum() > 1000
     np.testing.assert_allclose(out["cuda"]["tsdf"][same], out["cpu"]["tsdf"][same], atol=1e-5, rtol=0)
+
+
+def card_keyframe(cuda):
+    """A map spawned from two 64x64 boxroom frames and a buffer of three,
+    on the card."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.sim.synthetic import BoxRoomSimulator
+
+    cfg, rcfg = gm.MapConfig(capacity=8192, bilateral_radius=2, batch_size=4), tt.RasterConfig(entry_budget_mult=4.0)
+    sim = BoxRoomSimulator(resolution=SHAPE, seed=11, device=cuda)
+    state, buf = gm.init_state(cfg, device=cuda), kf.init_buffer(8, *SHAPE, device=cuda)
+    for i, target in enumerate(((5.5, 2.5, 1.2), (5.0, 4.0, 1.0), (5.5, 1.5, 1.4))):
+        frame = sim.simulate(geo.look_at((3.0, 2.5, 1.5), target, device=cuda))
+        if i < 2:
+            state, _, _ = gm.spawn(state, frame, cfg, rcfg)
+        buf = kf.add_frame(buf, frame)
+    return cfg, rcfg, state, buf
+
+
+def thread_ranks(n: int, fn):
+    """`fn(group)` on `n` ranks sharing the card, one thread each, over
+    in-process gloo groups (as `tests/test_torch_parallel.py` runs them)."""
+    import threading
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from activegs_torch.parallel import ViewGroup
+
+    store, out, errs = dist.HashStore(), [None] * n, []
+
+    def one(r):
+        try:
+            out[r] = fn(ViewGroup(dist.ProcessGroupGloo(store, r, n, timedelta(seconds=60)), r, n))
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errs:
+        raise errs[0]
+    return out
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_is_bitwise_the_single_process_keyframe(cuda):
+    """With one NCCL rank the all-reduce is the identity and every share's
+    weight is 1: a sharded keyframe is bitwise the single-process one."""
+    import torch.distributed as dist
+
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import trainer
+    from activegs_torch.parallel import ViewGroup
+
+    cfg, rcfg, state, buf = card_keyframe(cuda)
+    views = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(3))
+    copy = lambda b: dataclasses.replace(b, performance=b.performance.clone())  # noqa: E731
+    want = trainer.train_keyframe(state, copy(buf), views, cfg, rcfg, steps=3)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        got = trainer.train_keyframe(state, copy(buf), views, cfg, rcfg, steps=3, group=ViewGroup(None, 0, 1))
+    finally:
+        dist.destroy_process_group()
+    for f in gm.FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert torch.equal(got[1].performance, want[1].performance) and torch.equal(got[2], want[2])
+    assert [int(got[3][k]) for k in got[3]] == [int(want[3][k]) for k in want[3]]
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_the_single_process_step(cuda):
+    """Two ranks sharing the card over gloo: the sharded step's loss at
+    relative 1e-5 and gradients at 1e-5 scaled of the single-process
+    `batch_loss`, the same on both ranks."""
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.parallel import sharded_train_step
+
+    cfg, rcfg, state, buf = card_keyframe(cuda)
+    ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(3))
+    batch = kf.decode_frames(buf, ids)
+    leaves = lambda: {k: getattr(state, k).clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}  # noqa: E731
+    p = leaves()
+    loss, _ = trainer.batch_loss(p, state, batch, counts, cfg, rcfg)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    outs = thread_ranks(2, lambda g: sharded_train_step(leaves(), state, batch, counts, g, cfg, rcfg))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert float(outs[0][0]) == pytest.approx(float(loss.detach()), rel=1e-5)
+    for k, g in zip(trainer.PARAM_FIELDS, grads):
+        assert torch.equal(outs[0][1][k], outs[1][1][k]), k
+        scale = float(g.abs().max()) + 1e-12
+        assert float((outs[0][1][k] - g).abs().max()) / scale <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_resampled_step_kernel_path_matches_plain_path(cuda):
+    """A resampled step's render (no frozen bins, binning inside each
+    view's render): `batch_loss` and its gradients through the kernels
+    against the plain versions, loss at relative 1e-5, gradients at
+    relative L2 1e-3 (the L1 terms' kinks, ROADMAP.md section 3); a
+    resampled keyframe launches forward and backward every step."""
+    from unittest import mock
+
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+
+    cfg, rcfg, state, buf = card_keyframe(cuda)
+    ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(3))
+    batch = kf.decode_frames(buf, ids)
+
+    def loss_grads():
+        p = {k: getattr(state, k).clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}
+        loss, _ = trainer.batch_loss(p, state, batch, counts, cfg, rcfg)
+        return loss.detach(), torch.autograd.grad(loss, list(p.values()))
+
+    lk, gk = loss_grads()
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain), \
+            mock.patch.object(cp, "composite_bwd", cp.composite_bwd_plain):
+        lp, gp = loss_grads()
+    assert float(lk) == pytest.approx(float(lp), rel=1e-5)
+    for a, b in zip(gk, gp):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= 1e-3
+    for k in cp.KERNELS:
+        k.launches = 0
+    r_cfg = dataclasses.replace(cfg, resample_per_step=True)
+    _, _, loss, aux = trainer.train_keyframe(state, buf, None, r_cfg, rcfg, steps=3,
+                                             generator=torch.Generator().manual_seed(3))
+    assert math.isfinite(float(loss)) and aux == {"num_dropped": -1, "num_entries": -1}
+    assert cp.fwd_kernel.launches >= 3 and cp.bwd_kernel.launches == cp.fwd_kernel.launches
