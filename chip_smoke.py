@@ -6,7 +6,7 @@ Builds the hand-written kernels of the port (the three tile-compositor
 kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
 instance exported by the same source, and the two elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
-together), then drives six paths, each with the launch counters zeroed
+together), then drives seven paths, each with the launch counters zeroed
 just before it and read just after:
 
 1. the mapping step (spawn -> keyframe view stats -> train_keyframe -> stats
@@ -103,7 +103,25 @@ just before it and read just after:
    99.9% of values (2 everywhere) of the plain version's; (d) path 3's
    final map through `state_to_reference`, `convert` and
    `load_gaussian_map`, bitwise. (b)'s inputs are kept from paths 1 and 3
-   in the git-ignored `build/path6/`, and (d) runs right after path 3.
+   in the git-ignored `build/path6/`, and (d) runs right after path 3;
+7. the measurement and experiment scripts of `activegs_torch/scripts/`:
+   `bench.run_bench` at the reference's shape (200,000 surfels, 8 views x
+   10 steps, 512 x 512: rays/s, the subset bucket and the entry budget,
+   fwd and bwd launches), one train step of the bench scene through the
+   kernels against the plain versions (as path 1's step), and the opaque
+   scene's `term_stats`; `bench_mission.main` for P7_MISSION_STEPS steps
+   with no prewarm (its JSON line), recorded into the git-ignored
+   `build/path7/`; `validate_truncation.main` on that mission's final map
+   and its 8 cameras at 512 x 512 and 1024 x 1024 (the reference config
+   must drop no more entries than production on any view); and a sweep
+   smoke, `run_sweep.main` on tworoom with the confidence and random
+   planners, one seed, a 20 s budget, 16 test views and a 2-step warm-up
+   (each run's `final_result.json` and both summary cells checked).
+
+After the bf16 phase the stats kernel's two instances are timed in turns
+on both stats views, by CUDA events and by device time (`stats in turns,
+...`). Every phase's seconds are printed (`phase seconds: ...`), and each
+kernel's `launches_by_path` adds path 7's parts.
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -159,6 +177,7 @@ TIMED_LAUNCHES = 25
 PLAIN_RUNS = 5
 PROFILE_PAD_S = 2.5
 KF_VIEW = f"{RES}x{RES} keyframe-{KEYFRAMES} view"
+KF_STATS_VIEW = f"{KF_VIEW}, front only"
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -463,7 +482,7 @@ def compare(state, buf, cfg, rcfg):
     # stats, on post_process's front-only stream with its depth mask
     stats_args = stats_view(state, buf, cfg, rcfg)
     ent_s, s_start, s_len = stats_args[:3]
-    res["composite_stats"] = check_stats(f"{KF_VIEW}, front only", stats_args)
+    res["composite_stats"] = check_stats(KF_STATS_VIEW, stats_args)
     s_stop = cp.composite_fwd(ent_s, s_start, s_len, ntx, rcfg)[:, O_STOP, 0]
 
     # one whole batch_loss value and its grads, kernel path against plain
@@ -520,7 +539,7 @@ def compare(state, buf, cfg, rcfg):
     views = {
         "composite_fwd": {KF_VIEW: fwd_args},
         "composite_bwd": {KF_VIEW: (ent, b.tile_start, b.tile_len, o_k, gout, ntx, rcfg)},
-        "composite_stats": {f"{KF_VIEW}, front only": stats_args},
+        "composite_stats": {KF_STATS_VIEW: stats_args},
     }
     return res, inputs, cull, views
 
@@ -1449,51 +1468,47 @@ def fused_check(state, buf, cfg, rcfg) -> dict:
 
 def device_busy(fn) -> dict:
     """One call of `fn` under torch.profiler (after a warm-up call, padded
-    as in `profiled`): the device's busy time (the union of the recorded
-    kernels', copies' and fills' intervals), the device operations
-    recorded against those the host launched (its runtime calls that
-    launch a kernel, copy or fill), and the 4 device operations with the
-    most time. Up to 3 traces, until one records every launched
-    operation; else the most complete (its busy time is then a lower
-    bound)."""
+    as in `profiled`; the CUDA activity alone, which records the runtime's
+    launch calls too and costs far less to trace and parse than with the
+    CPU activity on a plan step's 100,000 operations): the device's busy
+    time (the union of the
+    recorded kernels', copies' and fills' intervals), the device
+    operations recorded against those the host launched (its runtime calls
+    that launch a kernel, copy or fill; where fewer are recorded, the busy
+    time is a lower bound), and the 4 device operations with the most
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    best = None
-    for _ in range(3):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-        dev = device_ops(prof)
-        launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
-                       and re.search(r"LaunchKernel|Memcpy|Memset", e.name))
-        busy, end = 0.0, -math.inf
-        for s0, s1 in sorted((e.time_range.start, e.time_range.end) for e in dev):
-            if s1 > end:
-                busy += s1 - max(s0, end)
-                end = s1
-        by_name = {}
-        for e in dev:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        rec = {"busy_ms": busy / 1e3, "device_ops": len(dev), "launched": launched,
-               "top": [(k[:60], t / 1e3) for k, t in top]}
-        if best is None or rec["device_ops"] > best["device_ops"]:
-            best = rec
-        if len(dev) >= launched:
-            break
-    return best
+        time.sleep(PROFILE_PAD_S)
+    dev = device_ops(prof)
+    launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+                   and re.search(r"LaunchKernel|Memcpy|Memset", e.name))
+    check(launched > 0, "device_busy: the trace holds no runtime launch call")
+    busy, end = 0.0, -math.inf
+    for s0, s1 in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"busy_ms": busy / 1e3, "device_ops": len(dev), "launched": launched,
+            "top": [(k[:60], t / 1e3) for k, t in top]}
 
 
 def plan_step_profile(mapper) -> dict:
     """One plan step's candidate utilities on the mission's final map, the
     per-candidate path against the batched one (the same candidates,
     budget and bucket): host time in turns (per-candidate, batched,
-    batched, per-candidate, each after a sync; 2 rounds), then each
+    batched, per-candidate, each after a sync), then each
     one's device busy time under torch.profiler (`device_busy`), and the
     idle share = 1 - busy / the median host time; the same for the
     candidate entry stats, which both paths run first."""
@@ -1506,13 +1521,12 @@ def plan_step_profile(mapper) -> dict:
     for fn in paths.values():
         fn()  # warm-up
     walls = {k: [] for k in paths}
-    for _ in range(2):
-        for k in ("per-candidate", "batched", "batched", "per-candidate"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            paths[k]()
-            torch.cuda.synchronize()
-            walls[k].append((time.perf_counter() - t0) * 1e3)
+    for k in ("per-candidate", "batched", "batched", "per-candidate"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths[k]()
+        torch.cuda.synchronize()
+        walls[k].append((time.perf_counter() - t0) * 1e3)
     prof = {k: device_busy(fn) for k, fn in paths.items()}
     entry_stats = lambda: cf._candidate_entry_stats(state, cands, sim.intrinsic, shape, planner.map_cfg, rcfg)  # noqa: E731
     entry_stats()  # warm-up
@@ -1553,7 +1567,7 @@ def bf16_bounds(name: str, pairs: int, nbytes: int, tops: dict) -> dict:
             "measured_rate_bound_ms": rate_ms(pairs, OPS_PER_PAIR[name], *EXP_DIV_PER_PAIR[name], tops, n_b)}
 
 
-def bf16_phase(views, grid, tops: dict) -> dict:
+def bf16_phase(views, grid, tops: dict, stats_turns: dict) -> dict:
     """The bf16 instances (`RasterConfig.bf16_pairs`) on the f32 checks'
     inputs: fwd, bwd and stats on the keyframe-5 view (`views`, as
     `compare` returns them; the backward on the bf16 forward's output) and
@@ -1561,9 +1575,11 @@ def bf16_phase(views, grid, tops: dict) -> dict:
     Each is held against its plain version at the card tests' tolerances
     (fwd images 2e-5, depth 1e-4, the same stop rows; bwd each row 2e-3 of
     its largest; stats importance 1e-5, counts only where a weight meets
-    the threshold within 1e-6), and timed against its f32 instance in
-    turns (f32, bf16, bf16, f32, twice; CUDA events, each a median of
-    TIMED_LAUNCHES calls). Returns {kernel: record keys}."""
+    the threshold within 1e-6). Fwd and bwd are timed against their f32
+    instances in turns (f32, bf16, bf16, f32, twice; CUDA events, each a
+    median of TIMED_LAUNCHES calls); stats takes both instances' device
+    times from `stats_turns` (`stats_turns_phase`). Returns {kernel:
+    record keys}."""
     from activegs_torch.render import composite as cp
     from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS
 
@@ -1571,7 +1587,7 @@ def bf16_phase(views, grid, tops: dict) -> dict:
         return (*args[:-1], dataclasses.replace(args[-1], bf16_pairs=True))
 
     fwd_args = views["composite_fwd"][KF_VIEW]
-    stats_args = views["composite_stats"][f"{KF_VIEW}, front only"]
+    stats_args = views["composite_stats"][KF_STATS_VIEW]
     ent, ts, tl, _, gout, ntx, rcfg = views["composite_bwd"][KF_VIEW]
     rb = dataclasses.replace(rcfg, bf16_pairs=True)
     grid_args, tpv = grid
@@ -1580,7 +1596,7 @@ def bf16_phase(views, grid, tops: dict) -> dict:
         ("composite_fwd", KF_VIEW): (fwd_args, ()),
         ("composite_fwd", "plan step grid"): (grid_args, (tpv,)),
         ("composite_bwd", KF_VIEW): ((ent, ts, tl, o_b, gout, ntx, rcfg), ()),
-        ("composite_stats", f"{KF_VIEW}, front only"): (stats_args, ()),
+        ("composite_stats", KF_STATS_VIEW): (stats_args, ()),
     }
     img_rows = [r for r in range(O_TRANS + 1) if r != O_DEPTH]
     recs = {}
@@ -1620,22 +1636,27 @@ def bf16_phase(views, grid, tops: dict) -> dict:
             extra["live_row_share"] = rows["live_pairs"] / rows["pairs"]
         del got, want
         check(ok, f"{name}_bf16 disagrees with its plain version on the {view}")
-        times = {"f32": [], "bf16": []}
-        for _ in range(2):
-            for side in ("f32", "bf16", "bf16", "f32"):
-                times[side].append(time_ms(k_f32 if side == "f32" else k_b16, TIMED_LAUNCHES))
-        med = {k: statistics.median(v) for k, v in times.items()}
+        if name == "composite_stats":
+            med, how = stats_turns[view]["device_ms"], "device time in turns, stats in turns"
+        else:
+            times = {"f32": [], "bf16": []}
+            for _ in range(2):
+                for side in ("f32", "bf16", "bf16", "f32"):
+                    times[side].append(time_ms(k_f32 if side == "f32" else k_b16, TIMED_LAUNCHES))
+            med = {k: statistics.median(v) for k, v in times.items()}
+            how = (f"CUDA events in turns f32/bf16/bf16/f32, twice, each a median of {TIMED_LAUNCHES}: f32 "
+                   + " ".join(f"{t:.4f}" for t in times["f32"]) + ", bf16 "
+                   + " ".join(f"{t:.4f}" for t in times["bf16"]))
         plain_ms = time_ms(p_b16, PLAIN_RUNS if view == KF_VIEW or name == "composite_stats" else 1)
         pairs = real_pairs(args[2], stop, rcfg.chunk, rcfg.tile_pixels)
         bounds = bf16_bounds(name, pairs, nbytes, tops)
         rec = {"view": view, "max_abs_err": err, "ms": med["bf16"], "f32_ms": med["f32"],
-               "ratio_bf16_f32": med["bf16"] / med["f32"], "turns_ms": times, "plain_ms": plain_ms,
-               "pairs": pairs, **bounds, **extra}
+               "ratio_bf16_f32": med["bf16"] / med["f32"], "plain_ms": plain_ms, "pairs": pairs, **bounds, **extra}
+        if name != "composite_stats":
+            rec["turns_ms"] = times
         recs.setdefault(f"{name}_bf16", []).append(rec)
         print(f"{name}_bf16, {view}: against plain, {what}; {med['bf16']:.4f} ms against f32 {med['f32']:.4f} ms "
-              f"(x{rec['ratio_bf16_f32']:.3f}; CUDA events in turns f32/bf16/bf16/f32, twice, each a median of "
-              f"{TIMED_LAUNCHES}: f32 " + " ".join(f"{t:.4f}" for t in times["f32"]) + ", bf16 "
-              + " ".join(f"{t:.4f}" for t in times["bf16"]) + f"); plain {plain_ms:.2f} ms; bound "
+              f"(x{rec['ratio_bf16_f32']:.3f}; {how}); plain {plain_ms:.2f} ms; bound "
               f"{bounds['bound_ms']:.4f} ms data sheet ({bounds['bound_by']}), {bounds['measured_rate_bound_ms']:.4f} "
               f"ms at the probe's measured rates ({pairs} pairs)")
     return recs
@@ -2499,6 +2520,229 @@ def viewer_phase(dev) -> dict:
             "visualize_s": t_vis, "web_s": t_web, "panel_max_diff": worst, "panel_within_1": share}
 
 
+def stats_turns_phase(views: dict) -> dict:
+    """The stats kernel's two instances timed in turns on each stats view
+    (`views`: {view: the f32 wrapper's arguments}), the one timing of both
+    instances: by CUDA events (f32, bf16, bf16, f32, twice, each a median
+    of TIMED_LAUNCHES calls; the wrapper's host work and its two fills
+    included) and by device time (one torch.profiler trace of calls
+    alternating f32, bf16, bf16, f32: each instance's replay kernel the
+    mean of its recorded launches, plus the tile ranking kernel, which
+    both instances launch alike, the mean of all its recorded launches).
+    A call's device time (`device_ms`, replay + ranking) is the `ms` of
+    both stats rows of the `kernels` line. Returns {view: record}."""
+    from activegs_torch.render import composite as cp
+
+    recs = {}
+    for view, args in views.items():
+        b_args = (*args[:-1], dataclasses.replace(args[-1], bf16_pairs=True))
+        calls = {"f32": lambda a=args: cp.composite_stats(*a), "bf16": lambda a=b_args: cp.composite_stats(*a)}
+        events = {"f32": [], "bf16": []}
+        for _ in range(2):
+            for side in ("f32", "bf16", "bf16", "f32"):
+                events[side].append(time_ms(calls[side], TIMED_LAUNCHES))
+        by_side, rank = {"f32": [], "bf16": []}, []
+        for _ in range(3):
+            ops = profiled(lambda: [calls[s]() for s in ("f32", "bf16", "bf16", "f32")], TIMED_LAUNCHES // 2)
+            for e in ops:
+                ms = (e.time_range.end - e.time_range.start) / 1e3
+                if "stats_kernel<" in e.name:
+                    side = "bf16" if "true" in e.name.split("stats_kernel<", 1)[1].split(">", 1)[0] else "f32"
+                    by_side[side].append(ms)
+                elif "tile_rank_kernel" in e.name:
+                    rank.append(ms)
+            if all(by_side.values()) and rank:
+                break
+        check(all(by_side.values()) and rank, f"stats in turns, {view}: three traces recorded no replay or "
+              f"ranking launch: { {k: len(v) for k, v in by_side.items()} }, ranking {len(rank)}")
+        med = {k: statistics.median(v) for k, v in events.items()}
+        replay = {k: sum(v) / len(v) for k, v in by_side.items()}
+        rank_ms = sum(rank) / len(rank)
+        dev_ms = {k: t + rank_ms for k, t in replay.items()}
+        recs[view] = {"events_ms": events, "events_median_ms": med, "device_ms": dev_ms, "replay_ms": replay,
+                      "rank_ms": rank_ms, "device_recorded": {**{k: len(v) for k, v in by_side.items()},
+                                                              "rank": len(rank)},
+                      "ratio_events": med["bf16"] / med["f32"], "ratio_device": dev_ms["bf16"] / dev_ms["f32"]}
+        print(f"stats in turns, {view}: CUDA events (f32/bf16/bf16/f32, twice, each a median of {TIMED_LAUNCHES}) "
+              f"f32 " + " ".join(f"{t:.4f}" for t in events["f32"]) + ", bf16 "
+              + " ".join(f"{t:.4f}" for t in events["bf16"]) + f" ms: median bf16 {med['bf16']:.4f} against f32 "
+              f"{med['f32']:.4f} ms (x{recs[view]['ratio_events']:.3f}); device time a call bf16 "
+              f"{dev_ms['bf16']:.4f} against f32 {dev_ms['f32']:.4f} ms (x{recs[view]['ratio_device']:.3f}): "
+              f"replay bf16 {replay['bf16']:.4f} ({len(by_side['bf16'])} recorded), f32 {replay['f32']:.4f} "
+              f"({len(by_side['f32'])} recorded), tile ranking {rank_ms:.4f} ms ({len(rank)} recorded)")
+    return recs
+
+
+# path 7: the measurement and experiment scripts of `activegs_torch/scripts/`
+P7_DIR = Path("build/path7")
+P7_BENCH_GAUSSIANS = 200_000  # the reference bench's surfels
+P7_MISSION_STEPS = 8  # steps 4-8 form the steady window; its map keeps 8 cameras
+P7_SWEEP = ["experiment.output_dir=build/path7/experiments", "exp_id=sweep_smoke", "scenes=synthetic/tworoom",
+            "planners=confidence,random", "runs=1", "budget=20", "num_test_views=16", "warmup_steps=2"]
+
+
+def _launches() -> dict:
+    from activegs_torch.render import composite as cp
+
+    return {k.name: k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)}
+
+
+def _zero_launches() -> None:
+    from activegs_torch.render import composite as cp
+
+    for k in (*cp.KERNELS, *cp.BF16_KERNELS):
+        k.launches = 0
+
+
+def bench_phase(dev) -> dict:
+    """Path 7 (bench): `scripts.bench.run_bench` at the reference's shape
+    (200,000 surfels, 8 views x 10 steps, 512x512), the counters zeroed
+    before and read after; then one train step of the bench scene (the
+    first timed run's batch, its buckets), `batch_loss` and its gradients
+    through the kernels against the plain versions (loss 1e-5 relative,
+    gradients 1e-3 in relative L2, as path 1's step); then the opaque
+    scene's termination telemetry (`term_probe`). Returns the record."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import RasterConfig
+    from activegs_torch.scripts import bench
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    rec = bench.run_bench(res=RES, n_gauss=P7_BENCH_GAUSSIANS, device=dev)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    print(f"bench (python -m activegs_torch.scripts.bench, {RES}x{RES}, {P7_BENCH_GAUSSIANS} surfels, 8 views x 10 "
+          f"steps): "
+          f"{rec['value'] / 1e6:.3f} M rays/s (vs_baseline {rec['vs_baseline']:.4f}); subset bucket "
+          f"{rec['subset_bucket']}, entry budget {rec['entry_budget']}; distinct views a step {rec['distinct_views']}; "
+          f"warm-up {rec['seconds']['warm_up']:.3f} s, timed " + " ".join(f"{t:.4f}" for t in rec["seconds"]["timed"])
+          + f" s; launches fwd {launches['composite_fwd']} bwd {launches['composite_bwd']} ({wall:.2f} s)")
+    check(rec["value"] > 0 and math.isfinite(rec["value"]), f"bench: {rec['value']} rays/s")
+    check(launches["composite_fwd"] == launches["composite_bwd"] > 0 and launches["composite_stats"] == 0
+          and all(launches[k.name] == 0 for k in cp.BF16_KERNELS), f"bench launches {launches}")
+
+    cfg, rcfg = gm.MapConfig(capacity=1 << 19, batch_size=bench.BATCH, optimization_steps=10), RasterConfig()
+    state, buf = bench.build_scene(RES, P7_BENCH_GAUSSIANS, cfg, device=dev)
+    sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
+    ids, counts = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(bench.BENCH_KEYS[1]))
+    batch = kf.decode_frames(buf, ids)
+    bins, subsets = trainer.prepare_views(sub, batch, cfg, rcfg, rec["subset_bucket"], rec["entry_budget"])
+
+    def loss_grads():
+        params = {k: getattr(sub, k).detach().clone().requires_grad_(True) for k in trainer.PARAM_FIELDS}
+        loss, _ = trainer.batch_loss(params, sub, batch, counts, cfg, rcfg, bins, subsets)
+        return float(loss.detach()), torch.autograd.grad(loss, list(params.values()))
+
+    lk, gk = loss_grads()
+    with mock.patch.object(cp, "composite_fwd", cp.composite_fwd_plain), \
+            mock.patch.object(cp, "composite_bwd", cp.composite_bwd_plain):
+        lp, gp = loss_grads()
+    e_loss = abs(lk - lp) / abs(lp)
+    errs = [float(torch.linalg.vector_norm(a - p) / torch.linalg.vector_norm(p)) for a, p in zip(gk, gp)]
+    print(f"bench train step ({len(ids)} distinct views): batch_loss kernel {lk:.7f} plain {lp:.7f} rel err "
+          f"{e_loss:.3g}; grad rel L2 err (max scaled) " + " ".join(
+              f"{n} {e:.3g} ({scaled_err(a, p):.3g})" for n, e, a, p in zip(trainer.PARAM_FIELDS, errs, gk, gp)))
+    check(e_loss <= 1e-5 and max(errs) <= 1e-3, "the bench train step through the kernels disagrees with the plain path")
+    del state, buf, sub, bins, subsets, gk, gp
+
+    state_o, buf_o = bench.build_scene(RES, P7_BENCH_GAUSSIANS, cfg, opacity_raw=5.0, device=dev)
+    term = bench.term_probe(gm.slice_state(state_o, gm.bucket_capacity(state_o.count, cfg.capacity)), buf_o, cfg,
+                            rcfg, RES)
+    print(f"bench opaque (BENCH_OPAQUE=1) term_stats: {json.dumps(term)}")
+    check(0 < term["chunks_processed"] <= term["chunks_available"], f"bench opaque term_stats {term}")
+    return {"rays_per_s": rec["value"], "subset_bucket": rec["subset_bucket"], "entry_budget": rec["entry_budget"],
+            "distinct_views": rec["distinct_views"], "run_s": rec["seconds"], "train_step_loss_err": e_loss,
+            "train_step_grad_rel_l2": max(errs), "term_stats": term, "launches": launches, "seconds": wall}
+
+
+def bench_mission_phase() -> dict:
+    """Path 7 (bench_mission): `scripts.bench_mission.main` for
+    P7_MISSION_STEPS steps with no prewarm (the earlier paths have built
+    everything), recorded into P7_DIR; checks the steady window and that
+    every f32 compositor kernel ran. Returns the record."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.scripts import bench_mission
+
+    argv = [f"steps={P7_MISSION_STEPS}", "prewarm=0", f"out={P7_DIR / 'bench_mission'}"]
+    _zero_launches()
+    t0 = time.perf_counter()
+    result = bench_mission.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    print(f"bench_mission (python -m activegs_torch.scripts.bench_mission {' '.join(argv)}): mapping median "
+          f"{result['value']:.3f} s, planning median {result['planning_s_median']:.3f} s over steps "
+          f"{result['steady_steps']}; launches {launches} ({wall:.2f} s)")
+    check(result["value"] is not None and math.isfinite(result["value"])
+          and result["steady_steps"] == list(range(bench_mission.STEADY_FROM, P7_MISSION_STEPS + 1)),
+          f"bench_mission result {result}")
+    check(all(launches[k.name] > 0 for k in cp.KERNELS), f"bench_mission: a kernel was not launched: {launches}")
+    return {"result": result, "launches": launches, "seconds": wall}
+
+
+def truncation_phase() -> dict:
+    """Path 7 (validate_truncation): `scripts.validate_truncation.main` on
+    the bench_mission path's final map and its 8 cameras, at 512x512 and at
+    `mesh_app`'s 1024x1024; checks 8 views each and that the reference
+    config drops no more entries than production on any view. Returns the
+    record."""
+    from activegs_torch.scripts import validate_truncation
+
+    map_dir = P7_DIR / "bench_mission" / "map"
+    out, launches = {}, {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    for size in (RES, 2 * RES):
+        res = validate_truncation.main([f"map={map_dir / 'map_final.npz'}", f"cams={map_dir / 'cameras_final.json'}",
+                                        "n_views=8", f"shape={size}", f"out={P7_DIR / f'truncation_{size}.json'}"])
+        views = res["views"]
+        out[f"{size}x{size}"] = {k: res[k] for k in ("value", "min_psnr", "mean_depth_mse", "mean_dropped_prod",
+                                                     "mean_dropped_ref", "n_gaussians")}
+        print(f"validate_truncation, {size}x{size}, {len(views)} views of the bench_mission map "
+              f"({res['n_gaussians']} gaussians): PSNR production against reference config mean {res['value']:.2f} "
+              f"dB, min {res['min_psnr']:.2f} dB; depth MSE mean {res['mean_depth_mse']:.3g}; num_dropped mean "
+              f"{res['mean_dropped_prod']} against {res['mean_dropped_ref']}")
+        check(len(views) == 8, f"validate_truncation {size}: {len(views)} views")
+        check(all(v["dropped_ref"] <= v["dropped_prod"] for v in views),
+              f"validate_truncation {size}: the reference config dropped more than production: {views}")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    return {**out, "launches": launches, "seconds": wall}
+
+
+def sweep_smoke_phase() -> dict:
+    """Path 7 (run_sweep): `scripts.run_sweep.main` with P7_SWEEP (tworoom,
+    confidence and random, one seed, a 20 s budget, 16 test views, a 2-step
+    warm-up); checks that each run wrote `final_result.json` and
+    `run_info.json` and that the summary has both cells. Returns the
+    record."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.scripts import run_sweep
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    summary = run_sweep.main(P7_SWEEP)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    cells = summary["scenes"].get("tworoom", {})
+    for planner in ("confidence", "random"):
+        run_dir = P7_DIR / "experiments" / "sweep_smoke" / "tworoom" / planner / "0"
+        for f in (run_dir / "final_result.json", run_dir / "run_info.json"):
+            check(f.exists(), f"sweep smoke: {f} not written")
+        check(cells.get(planner, {}).get("n_runs") == 1 and "mean_psnr" in cells[planner]["final"],
+              f"sweep smoke: cell {planner}: {cells.get(planner)}")
+    finals = {p: {m: cells[p]["final"][m]["mean"] for m in ("mean_psnr", "mesh_completion_ratio")
+                  if m in cells[p]["final"]} for p in cells}
+    print(f"sweep smoke (python -m activegs_torch.scripts.run_sweep {' '.join(P7_SWEEP)}): finals {finals}; missions "
+          + "; ".join(f"{m['planner']} {m['steps']} steps, first step's mapping {m['t_mapping_first']:.2f} s against "
+                      f"{m['t_mapping_median_rest']} s" for m in summary["missions"])
+          + f"; launches {launches} ({wall:.2f} s)")
+    check(all(launches[k.name] > 0 for k in cp.KERNELS), f"sweep smoke: a kernel was not launched: {launches}")
+    return {"finals": finals, "missions": summary["missions"], "launches": launches, "seconds": wall}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2528,21 +2772,30 @@ def main() -> None:
             print(f"  {name}: {func}: {regs} registers, {spills} bytes spilled")
 
     dev = torch.device("cuda")
-    state, buf, map_launches, cfg, rcfg, psnr_kf1 = main_path(dev)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    state, buf, map_launches, cfg, rcfg, psnr_kf1 = timed("1 mapping", main_path, dev)
     fwd_build = kernel_build(cp, "composite_fwd", rcfg)
     print(f"composite_fwd build: {fwd_build}")
-    errs, inputs, (live, rows), views = compare(state, buf, cfg, rcfg)
+    errs, inputs, (live, rows), views = timed("1 checks", compare, state, buf, cfg, rcfg)
     stats_cull = {view: stats_cull_line(view, args) for view, args in views["composite_stats"].items()}
     stats_builds = {name: kernel_build(cp, name, rcfg) for name in ("composite_stats", "composite_stats_bf16")}
     for name, build in stats_builds.items():
         print(f"{name} build: {build}")
-    kf_batch = keyframe_batched_phase(state, buf, cfg, rcfg)
-    fused = fused_check(state, buf, cfg, rcfg)
+    kf_batch = timed("1 batched", keyframe_batched_phase, state, buf, cfg, rcfg)
+    fused = timed("1 fused", fused_check, state, buf, cfg, rcfg)
     export_keyframe_batch(state, buf, cfg, rcfg)
     del state, buf
     torch.cuda.empty_cache()
-    probes, tops = probe_phase(dev)
-    mission_launches, mapper = mission_phase(dev)
+    probes, tops = timed("2 probes", probe_phase, dev)
+    mission_launches, mapper = timed("3 mission", mission_phase, dev)
     utility_check(mapper)
     # the second stats view: post_process's call on the mission's final map
     m_view = f"mission final map (step {MISSION_STEPS}), latest keyframe, front only"
@@ -2553,23 +2806,33 @@ def main() -> None:
     views["composite_stats"][m_view] = m_args
     views["composite_stats_bf16"] = {view: (*a[:-1], dataclasses.replace(a[-1], bf16_pairs=True))
                                      for view, a in views["composite_stats"].items()}
-    candidate, cand_view, plan_grid = candidate_phase(mapper, tops)
+    candidate, cand_view, plan_grid = timed("3 candidates", candidate_phase, mapper, tops)
     views["composite_fwd"].update(cand_view)
-    profile = plan_step_profile(mapper)
-    bf16 = bf16_phase(views, plan_grid, tops)
+    profile = timed("3 plan step profile", plan_step_profile, mapper)
+    stats_turns = timed("3 stats in turns", stats_turns_phase, views["composite_stats"])
+    bf16 = timed("3 bf16", bf16_phase, views, plan_grid, tops, stats_turns)
     export_plan_step(mapper)
     p6_checkpoint = checkpoint_phase(mapper)
     del mapper, plan_grid
     torch.cuda.empty_cache()
-    cli_launches = cli_mission_phase()
-    fwd_1024, offline_launches, offline = offline_eval_phase(dev, tops)
+    cli_launches = timed("4 cli mission", cli_mission_phase)
+    fwd_1024, offline_launches, offline = timed("5 offline eval", offline_eval_phase, dev, tops)
     torch.cuda.empty_cache()
-    p6 = {"resample": resample_phase(dev, psnr_kf1)}
+    p6 = {"resample": timed("6a resample", resample_phase, dev, psnr_kf1)}
     torch.cuda.empty_cache()
-    p6["sharded"] = sharded_phase(card)
-    p6["viewers"] = viewer_phase(dev)
+    p6["sharded"] = timed("6b sharded", sharded_phase, card)
+    p6["viewers"] = timed("6c viewers", viewer_phase, dev)
     p6["checkpoint"] = p6_checkpoint
     p6_launches = {part: rec["launches"] for part, rec in p6.items() if "launches" in rec}
+    torch.cuda.empty_cache()
+    p7 = {"bench": timed("7 bench", bench_phase, dev)}
+    torch.cuda.empty_cache()
+    p7["bench_mission"] = timed("7 bench_mission", bench_mission_phase)
+    p7["validate_truncation"] = timed("7 validate_truncation", truncation_phase)
+    torch.cuda.empty_cache()
+    p7["sweep_smoke"] = timed("7 sweep smoke", sweep_smoke_phase)
+    p7_launches = {part: rec["launches"] for part, rec in p7.items()}
+    path_launches = {**p6_launches, **p7_launches}
     pairs = kf_batch["kf_batch_pairs"]
     kf_batch.update(kf_batch_bwd_bound_ms=pairs * OPS_PER_PAIR["composite_bwd"] / PEAK_FP32_FLOPS * 1e3,
                     kf_batch_bwd_measured_rate_bound_ms=measured_rate_bound_ms("composite_bwd", pairs, tops))
@@ -2577,17 +2840,16 @@ def main() -> None:
           f"ms data sheet, {kf_batch['kf_batch_bwd_measured_rate_bound_ms']:.4f} ms at the probe's measured rates "
           f"({pairs} pairs)")
 
-    # the stats launch's two kernels, by device time (torch.profiler)
-    stats_device = {}
-    for view, s_args in views["composite_stats"].items():
-        (replay, n_r, _), (rank, n_k, _) = kernel_device_ms(lambda a=s_args: cp.composite_stats(*a), TIMED_LAUNCHES,
-                                                            cp.stats_kernel, "stats_kernel<", "tile_rank_kernel")
-        stats_device[view] = {"replay": replay, "rank": rank}
-        print(f"composite_stats, {view}: device time a call: replay {replay:.4f} ms ({n_r} recorded), tile ranking "
-              f"{rank:.4f} ms ({n_k} recorded)")
+    # the stats launch's two kernels, by device time in turns with the bf16 instance
+    stats_device = {view: {"replay": rec["replay_ms"]["f32"], "rank": rec["rank_ms"]}
+                    for view, rec in stats_turns.items()}
     kernels = []
     for name, (kfn, pfn, pairs, nbytes) in inputs.items():
-        ms = time_ms(kfn, TIMED_LAUNCHES)
+        # stats: its device time in turns (stats_turns_phase), not its event time, which the host work holds
+        if name == "composite_stats":
+            ms = stats_turns[KF_STATS_VIEW]["device_ms"]["f32"]
+        else:
+            ms = time_ms(kfn, TIMED_LAUNCHES)
         plain_ms = time_ms(pfn, PLAIN_RUNS)
         t_ops = pairs * OPS_PER_PAIR[name] / PEAK_FP32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -2601,8 +2863,9 @@ def main() -> None:
         if name == "composite_bwd":
             extra.update(**kf_batch, fused_view_kernel=fused)
         if name == "composite_stats":
-            extra.update(live_row_share=stats_cull[f"{KF_VIEW}, front only"]["live_row_share"],
-                         build=stats_builds[name], views=stats_cull, device_ms=stats_device)
+            extra.update(live_row_share=stats_cull[KF_STATS_VIEW]["live_row_share"],
+                         build=stats_builds[name], views=stats_cull, device_ms=stats_device,
+                         events_ms=stats_turns[KF_STATS_VIEW]["events_median_ms"]["f32"])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2619,7 +2882,7 @@ def main() -> None:
             **extra,
             "launches_by_path": {"mapping": map_launches[name], "mission": mission_launches[name],
                                  "offline_eval": offline_launches[name],
-                                 **{part: n.get(name, 0) for part, n in p6_launches.items()}},
+                                 **{part: n.get(name, 0) for part, n in path_launches.items()}},
         })
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms data sheet, "
               f"{measured:.4f} ms at the probe's measured rates ({pairs} pairs), "
@@ -2641,11 +2904,11 @@ def main() -> None:
             "library_ms": None,
             "measured_rate_bound_ms": recs[0]["measured_rate_bound_ms"],
             "f32_ms": recs[0]["f32_ms"],
-            **({"live_row_share": recs[0]["live_row_share"], "build": stats_builds[kern.name]}
-               if kern.name in stats_builds else {}),
+            **({"live_row_share": recs[0]["live_row_share"], "build": stats_builds[kern.name],
+                "turns": stats_turns} if kern.name in stats_builds else {}),
             "views": recs,
             "launches_by_path": {"cli_mission": cli_launches[kern.name], "offline_eval": offline_launches[kern.name],
-                                 **{part: n.get(kern.name, 0) for part, n in p6_launches.items()}},
+                                 **{part: n.get(kern.name, 0) for part, n in path_launches.items()}},
         })
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
@@ -2655,6 +2918,10 @@ def main() -> None:
         parent_in_turns(views, args.parent)
     print("path 6: " + json.dumps({part: {k: v for k, v in rec.items() if k not in ("ranks", "keyframes")}
                                      for part, rec in p6.items()}))
+    print("path 7: " + json.dumps({part: {k: v for k, v in rec.items() if k not in ("missions",)}
+                                     for part, rec in p7.items()}, default=str))
+    print("phase seconds: " + json.dumps({k: round(v, 2) for k, v in phase_s.items()})
+          + f"; all phases {sum(phase_s.values()):.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
