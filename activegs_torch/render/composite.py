@@ -70,6 +70,11 @@ from .types import O_CONF, O_DEPTH, O_STOP, O_TRANS, OUT_ROWS, PARAM_DIM, USED_R
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 INT32_MAX = 2**31 - 1  # tile_start is int32, as in the reference
+# the most pixels a tile may have: the backward and stats kernels run one
+# thread a pixel in one block, and a block holds at most 1024 threads
+MAX_TILE_PIXELS = 1024
+# the most threads a block of the forward kernel takes (its launch bounds)
+FWD_BLOCK_THREADS = 512
 # common tail: ntx, tile_w, tile_h, K, alpha_cut, alpha_max, term_eps,
 # depth_lo, depth_hi, stream
 _TAIL = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]
@@ -107,13 +112,26 @@ def views_tpv(num_tiles: int, tpv: int | None) -> int:
     return tpv
 
 
+def check_tile(cfg: RasterConfig) -> None:
+    """Raises ValueError for a tile the kernels do not take: more than
+    MAX_TILE_PIXELS pixels, a count that is not a multiple of 32, or one
+    that the forward kernel cannot split (`fwd_cluster_size`), which leaves
+    no forward pass for the other two to replay."""
+    p = cfg.tile_pixels
+    if p % 32 or p > MAX_TILE_PIXELS:
+        raise ValueError(
+            f"tile of {cfg.tile_h}x{cfg.tile_w} = {p} pixels: the kernels take a multiple of 32 pixels, "
+            f"at most {MAX_TILE_PIXELS}"
+        )
+    fwd_cluster_size(cfg)
+
+
 def _check(entries, tile_start, tile_len, cfg: RasterConfig, tpv: int | None = None, **tensors) -> tuple[int, int, int]:
     """Validate the kernels' inputs; returns (E, T, tiles per view)."""
     if entries.device.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {entries.device}")
+    check_tile(cfg)
     p = cfg.tile_pixels
-    if p % 32 or p > 512:
-        raise ValueError(f"tile of {p} pixels: kernels need a multiple of 32, at most 512")
     if entries.dtype != torch.float32 or entries.dim() != 2 or entries.shape[0] != PARAM_DIM:
         raise ValueError(f"entries must be float32 ({PARAM_DIM}, E), got {entries.dtype} {tuple(entries.shape)}")
     e = entries.shape[1]
@@ -396,9 +414,19 @@ def stats_live_rows(entries, tile_start, tile_len, mask, ntx: int, cfg: RasterCo
 
 def fwd_cluster_size(cfg: RasterConfig) -> int:
     """Blocks of the thread-block cluster that renders one tile in the
-    forward kernel, each taking tile_h / C pixel rows: the largest C of 4,
-    2, 1 that divides tile_h and leaves a multiple of 32 pixels a block."""
-    return next(c for c in (4, 2, 1) if cfg.tile_h % c == 0 and (cfg.tile_pixels // c) % 32 == 0)
+    forward kernel, each taking P / C consecutive pixels of the tile's
+    row-major P: the largest C of 4, 2, 1 that leaves a multiple of 32
+    pixels a block and at most FWD_BLOCK_THREADS. Raises ValueError for a
+    tile none of them splits so (more than 512 pixels in an odd number of
+    warps)."""
+    p = cfg.tile_pixels
+    for c in (4, 2, 1):
+        if p % c == 0 and (p // c) % 32 == 0 and p // c <= FWD_BLOCK_THREADS:
+            return c
+    raise ValueError(
+        f"tile of {cfg.tile_h}x{cfg.tile_w} = {p} pixels: the forward kernel splits a tile over a cluster of 4, 2 "
+        f"or 1 blocks of whole warps and at most {FWD_BLOCK_THREADS} threads, and none splits {p // 32} warps so"
+    )
 
 
 def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig, tpv: int | None = None):

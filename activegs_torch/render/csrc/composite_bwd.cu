@@ -73,6 +73,20 @@
 //   `tile_order_kernel`, which ranks the tiles once by reached entries into
 //   an int buffer the wrapper allocates, and block b replays the tile of
 //   rank b: the longest replays start in the first wave.
+// - Tiles of up to 1024 pixels (a 32x32 tile). A block stays one thread a
+//   pixel, up to 1024 threads under __launch_bounds__(1024, 1), which caps
+//   a thread at 64 registers, the cap that (512, 2) set while tiles had
+//   at most 512 pixels, so the code's register fit holds, and a 512-thread
+//   block still fits two an SM. At K = 128 and 32 warps its shared memory
+//   is the staged chunk (10,240 B), the double-buffered partial rows (2 x
+//   32 x 32 x 19 x 4 = 155,648 B) and the ballot words (512 B): 166,400 of
+//   the 227 KB, one block an SM, 32 warps, as two blocks of 16 warps give
+//   at 16x32. The other design, two pixels a thread in 512 threads, would
+//   keep two blocks an SM but carry two pixels' state (7 cotangents, T,
+//   the suffix, the 18 per-pair values) under the same 64-register cap,
+//   and its warp would cover 64 pixels, so its ballots, its cull and its
+//   transposed sums would all change shape; one pixel a thread keeps the
+//   code as it is.
 // Alpha, the plane depth, excl, t_before and T are computed as the forward
 // pass does (-fmad=false, IEEE division, the plain version's op order:
 // `alpha_of` and `depth_of` repeat eval_alpha and eval_depth of
@@ -82,11 +96,12 @@
 // to one tile: no atomics, and every sum has a fixed order.
 //
 // Build (nvcc 12.9, sm_90a, -Xptxas -v): 58 registers a thread at K = 128,
-// 64 for any other K, no spills (__launch_bounds__(512, 2) caps it at 64);
-// 88320 bytes of shared memory a block at K = 128, where the CUDA occupancy
-// query (`composite_bwd_occupancy`) gives 2 blocks of 512 threads per SM.
-// The design with a tree per column had 63 registers. The ordering kernel
-// has 22 registers and takes about 9 us a launch at 512 tiles.
+// 64 for any other K, no spills (__launch_bounds__(1024, 1) caps it at
+// 64); 88320 bytes of shared memory a block at K = 128, where the CUDA
+// occupancy query (`composite_bwd_occupancy`) gives 2 blocks of 512
+// threads per SM. The design with a tree per column had 63 registers. The
+// ordering kernel has 22 registers and takes about 9 us a launch at 512
+// tiles.
 //
 // The bf16 instance (`composite_bwd_bf16_launch`, RasterConfig.bf16_pairs;
 // the reference's bf16 branches of `_bwd_kernel`, composite_pallas.py:332-334,
@@ -106,6 +121,7 @@ constexpr int kSub = 32;                   // most entries per round: one ballot
 constexpr int kRedStride = kUsedRows + 1;  // floats per (warp, entry) partial row
 constexpr int kEntryStride = 20;           // floats per staged entry: rows 0..17, 16-byte aligned
 constexpr int kScan = 2;                   // entries pass 1 evaluates alpha for together
+constexpr int kMaxThreads = 1024;          // threads a block at most: one a pixel of a 32x32 tile
 
 // Stage rows 0..17 of chunk `chunk` entry by entry, sh[k * kEntryStride +
 // row], so that one entry's parameters load as five vectors; the caller
@@ -283,7 +299,7 @@ __global__ void tile_order_kernel(const int* __restrict__ tile_len,
 // walk over the live entries (`wq_total_bf16`) then sums bf16(w q_d) with
 // the chunk's T_before, which the suffix needs before pass 2.
 template <int KT, bool BF16>
-__global__ void __launch_bounds__(512, 2)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 bwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
            const float* __restrict__ out_fwd, const float* __restrict__ gout,
@@ -507,6 +523,7 @@ int launch(const float* entries, long long e_total, const int* tile_start, const
   if (kchunk % (kchunk < kSub ? kchunk : kSub)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int npix = tile_w * tile_h;
+  if (npix % 32 || npix > kMaxThreads) return (int)cudaErrorInvalidValue;
   const int nt = kOrderThreads;
   tile_order_kernel<<<(num_tiles + nt - 1) / nt, nt, nt * (int)sizeof(int), st>>>(
       tile_len, out_fwd, num_tiles, npix, kchunk, order);

@@ -48,12 +48,17 @@
 //   first design's, in the same order (`tests/test_torch_fwd_cull.py`
 //   shows the invariant on the CPU).
 // - Cluster split. A tile is rendered by a thread-block cluster of C blocks
-//   (C = 4 for the default 16x32 tile): block `rank` owns pixel rows
-//   [rank * tile_h / C, (rank + 1) * tile_h / C), one thread per pixel, so
-//   a 128x128 candidate is 128 blocks and a 512x512 view 2048 blocks of 128
-//   threads. Each block stages the chunk's 18 rows into its own shared
-//   memory (the view's entries stay resident in the 50 MB L2). Nothing is
-//   summed across blocks: every output pixel belongs to one thread.
+//   (C = 4 for the default 16x32 tile): block `rank` owns the tile's
+//   row-major pixels [rank * P / C, (rank + 1) * P / C), one thread per
+//   pixel, whole warps and at most 512 threads a block (`splits`), so a
+//   128x128 candidate is 128 blocks and a 512x512 view 2048 blocks of 128
+//   threads. A 32x32 tile is 4 blocks of 256 threads (8 pixel rows each),
+//   a 16x16 tile 4 blocks of 64 and an 8x16 tile 4 blocks of one warp;
+//   where tile_w is 16 a warp spans two pixel rows, which changes nothing
+//   below: the cull tests alpha, not the geometry. Each block stages the
+//   chunk's 18 rows into its own shared memory (the view's entries stay
+//   resident in the 50 MB L2). Nothing is summed across blocks: every
+//   output pixel belongs to one thread.
 // - The stop stays tile-wide and exact. At each chunk boundary a block
 //   takes __syncthreads_or(trans > term_eps) over its rows and writes the
 //   bit into one of two flag slots of its shared memory (by chunk parity);
@@ -110,6 +115,7 @@ namespace composite {
 constexpr int kStride = 20;  // floats a staged entry takes: rows 0..17 and 2 of padding
 constexpr int kVecs = kStride / 4;
 constexpr int kGroup = 8;    // entries whose alphas are evaluated together
+constexpr int kMaxBlockThreads = 512;  // the kernel's launch bounds (`splits`)
 
 // Stage rows 0..17 of chunk `chunk` entry by entry, entry k's rows at
 // sh[k * kVecs .. + kVecs) (16-byte aligned; the rows of one thread's
@@ -189,7 +195,7 @@ __device__ __forceinline__ void composite_entries(const float4* sh, int k0, cons
 // BF16: the bf16 pair-math instance (composite_entries); T across chunks
 // stays float32, times each chunk's total product rounded to bf16.
 template <bool BF16>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kMaxBlockThreads)
 fwd_kernel(const float* __restrict__ entries, long long e_total,
            const int* __restrict__ tile_start, const int* __restrict__ tile_len,
            float* __restrict__ out, int tpv, int ntx, int tile_w, int tile_h, int kchunk, Cfg cfg) {
@@ -264,8 +270,13 @@ inline cudaError_t chunk_smem(int kchunk, int* smem) {
   return cudaFuncSetAttribute(fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
+// A cluster of `cluster` blocks splits the tile's pixels into equal runs of
+// whole warps, at most kMaxBlockThreads each (composite.fwd_cluster_size
+// picks the largest such cluster of 4, 2, 1).
 inline bool splits(int cluster, int tile_w, int tile_h) {
-  return cluster >= 1 && tile_h % cluster == 0 && (tile_w * tile_h / cluster) % 32 == 0;
+  const int npix = tile_w * tile_h;
+  return cluster >= 1 && npix % cluster == 0 && (npix / cluster) % 32 == 0 &&
+         npix / cluster <= kMaxBlockThreads;
 }
 
 template <bool BF16>
@@ -289,7 +300,8 @@ int launch(const float* entries, long long e_total, const int* tile_start, const
 
 }  // namespace composite
 
-// `cluster` blocks render each tile, each `tile_h / cluster` pixel rows.
+// `cluster` blocks render each tile, each P / cluster consecutive pixels
+// of its row-major P = tile_w * tile_h (`splits`).
 // The `num_tiles` tiles are views of `tpv` tiles each (tpv divides
 // num_tiles; tpv = num_tiles for one view).
 extern "C" int composite_fwd_launch(const float* entries, long long e_total,

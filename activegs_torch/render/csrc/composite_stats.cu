@@ -76,6 +76,14 @@
 // - The default K = 128 is compiled with K known; any other K takes it as
 //   an argument, its last round padded with zero values that no lane
 //   stores.
+// - Tiles of up to 1024 pixels (32x32). Nothing of the above depends on
+//   the warp count: the ballots, folds and the cull are per warp, and the
+//   cross-warp pass loops over nwarps = P / 32 (32 warps at 32x32; counts
+//   up to 1024 stay exact integers). A block of up to 1024 threads runs
+//   under __launch_bounds__(1024), whose cap of 64 registers a thread the
+//   code keeps under (32 at K = 128, 55 for any other K; no spills); where
+//   tile_w is 16 a warp spans two pixel rows, and the cull, taken on the
+//   sums, stays exact.
 // Alpha, wm, excl and T are computed as the first design does (-fmad=false,
 // eval_alpha's op order), so the output is that design's bit for bit.
 // Every entry belongs to one tile: no atomics.
@@ -108,6 +116,7 @@ constexpr int kAlphaRows = 6;  // rows 0..5: mean x/y, conic a/b/c, opacity
 constexpr int kSlot = 8;       // floats a staged entry takes: its 6 rows and 2 of padding
 constexpr int kRound = 32;     // entries a round: the 32 columns of one warp's folds
 constexpr int kGroup = 4;      // entries whose alphas are evaluated together
+constexpr int kMaxThreads = 1024;  // threads a block at most: one a pixel of a 32x32 tile
 
 // Start copying rows 0..5 of chunk `chunk` into sh, entry k's rows at
 // sh[k * kSlot + row] (coalesced along each row); cp.async.wait_all then
@@ -221,7 +230,7 @@ __global__ void tile_rank_kernel(const int* __restrict__ tile_len, int num_tiles
 // float32; excl times bf16(1 - alpha); T times each chunk's total product
 // rounded to bf16).
 template <int KT, bool BF16>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kMaxThreads)
 stats_kernel(const float* __restrict__ entries, long long e_total,
              const int* __restrict__ tile_start, const int* __restrict__ tile_len,
              const float* __restrict__ mask, float weight_thres, float* __restrict__ imp,
@@ -325,6 +334,8 @@ constexpr int kThreadsPerSM = 1024;  // threads an SM holds at most (`launch_sme
 // so that an SM holds at most kThreadsPerSM threads: 2 blocks of the
 // default 512 threads. The registers would let it hold 3, which then share
 // each SM's issue slots three ways, so that the heaviest tiles end later.
+// A 1024-pixel tile's block is then alone on its SM,
+// 32 warps as at 16x32, and its 74,752 B of need fit well under the cap.
 inline cudaError_t launch_smem(int tile_pixels, int kchunk, int* smem) {
   int dev, per_sm, reserved;
   cudaError_t err = cudaGetDevice(&dev);
@@ -354,6 +365,7 @@ int launch(const float* entries, long long e_total, const int* tile_start, const
            int num_tiles, int ntx, int tile_w, int tile_h, int kchunk, const Cfg& cfg,
            void* stream) {
   if (num_tiles == 0) return 0;
+  if ((tile_w * tile_h) % 32 || tile_w * tile_h > kMaxThreads) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   tile_rank_kernel<<<num_tiles, kRankThreads, 0, st>>>(tile_len, num_tiles, order);
   cudaError_t err = cudaGetLastError();

@@ -6,7 +6,7 @@ Builds the hand-written kernels of the port (the three tile-compositor
 kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
 instance exported by the same source, and the two elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
-together), then drives seven paths, each with the launch counters zeroed
+together), then drives eight paths, each with the launch counters zeroed
 just before it and read just after:
 
 1. the mapping step (spawn -> keyframe view stats -> train_keyframe -> stats
@@ -114,9 +114,24 @@ just before it and read just after:
    `build/path7/`; `validate_truncation.main` on that mission's final map
    and its 8 cameras at 512 x 512 and 1024 x 1024 (the reference config
    must drop no more entries than production on any view); and a sweep
-   smoke, `run_sweep.main` on tworoom with the confidence and random
-   planners, one seed, a 20 s budget, 16 test views and a 2-step warm-up
-   (each run's `final_result.json` and both summary cells checked).
+   smoke, `run_sweep.main` on tworoom with the confidence planner, one
+   seed, a 20 s budget, 16 test views and a 2-step warm-up (the run's
+   `final_result.json` and the summary's cell checked).
+
+8. tiles other than the default 16x32, and the profiling scripts: on
+   keyframe 5's view (kept from path 1) at 32x32 (1024 pixels: the
+   forward kernel's 4 blocks of 256 threads, the backward and stats
+   kernels' 1024-thread blocks), 16x16 and 8x16 tiles (16 pixels wide: a warp
+   spans two pixel rows), fwd and bwd, f32 and bf16, and at 32x32 stats
+   too, each held against its plain version at paths 1 and 3's
+   tolerances and timed, each 32x32 kernel with its bounds; a mission
+   from `apps.main.main()` with `mapper.raster.tile_h=32
+   mapper.raster.tile_w=32` for P8_CLI_STEPS steps (every f32 kernel
+   launched); and each profiling script (`tile_scan`, `kernel_overhead`,
+   `profile_bwd`, `profile_step` with its op ledger, `profile_planner`,
+   `profile_mission_train`, `bench scaling=1` over one NCCL rank) once at
+   full width with BENCH_STEPS=P8_SCRIPT_STEPS (the planner's over
+   P8_PLANNER_CANDIDATES candidates), each closing JSON line checked.
 
 After the bf16 phase the stats kernel's two instances are timed in turns
 on both stats views, by CUDA events and by device time (`stats in turns,
@@ -135,8 +150,8 @@ stats launch its two kernels' device times on both views. With `--parent
 DIR` (a `git archive` of the parent commit in a git-ignored directory) it
 then imports DIR's compositor beside this one, finds which of the three
 compositor kernels' sources differ (by the digest their libraries are
-named by), and for each that does (the stats kernel's bf16 instance
-beside its f32 one): calls both wrappers on that kernel's views and
+named by), and for each that does (each with its bf16 instance beside
+its f32 one): calls both wrappers on that kernel's views and
 checks their outputs bitwise equal, prints what each build gives (and the
 innermost loop with an expf in its SASS) and each call's device time by
 kernel, and times the two in turns (parent, change, change, parent, 4
@@ -2577,8 +2592,9 @@ def stats_turns_phase(views: dict) -> dict:
 P7_DIR = Path("build/path7")
 P7_BENCH_GAUSSIANS = 200_000  # the reference bench's surfels
 P7_MISSION_STEPS = 8  # steps 4-8 form the steady window; its map keeps 8 cameras
+P7_SWEEP_PLANNERS = ("confidence",)  # the smoke checks that run_sweep runs, not the planners' comparison
 P7_SWEEP = ["experiment.output_dir=build/path7/experiments", "exp_id=sweep_smoke", "scenes=synthetic/tworoom",
-            "planners=confidence,random", "runs=1", "budget=20", "num_test_views=16", "warmup_steps=2"]
+            f"planners={','.join(P7_SWEEP_PLANNERS)}", "runs=1", "budget=20", "num_test_views=16", "warmup_steps=2"]
 
 
 def _launches() -> dict:
@@ -2714,10 +2730,10 @@ def truncation_phase() -> dict:
 
 def sweep_smoke_phase() -> dict:
     """Path 7 (run_sweep): `scripts.run_sweep.main` with P7_SWEEP (tworoom,
-    confidence and random, one seed, a 20 s budget, 16 test views, a 2-step
-    warm-up); checks that each run wrote `final_result.json` and
-    `run_info.json` and that the summary has both cells. Returns the
-    record."""
+    the confidence planner, one seed, a 20 s budget, 16 test views, a
+    2-step warm-up); checks that each run wrote `final_result.json` and
+    `run_info.json` and that the summary has each planner's cell. Returns
+    the record."""
     from activegs_torch.render import composite as cp
     from activegs_torch.scripts import run_sweep
 
@@ -2727,7 +2743,7 @@ def sweep_smoke_phase() -> dict:
     wall = time.perf_counter() - t0
     launches = _launches()
     cells = summary["scenes"].get("tworoom", {})
-    for planner in ("confidence", "random"):
+    for planner in P7_SWEEP_PLANNERS:
         run_dir = P7_DIR / "experiments" / "sweep_smoke" / "tworoom" / planner / "0"
         for f in (run_dir / "final_result.json", run_dir / "run_info.json"):
             check(f.exists(), f"sweep smoke: {f} not written")
@@ -2741,6 +2757,247 @@ def sweep_smoke_phase() -> dict:
           + f"; launches {launches} ({wall:.2f} s)")
     check(all(launches[k.name] > 0 for k in cp.KERNELS), f"sweep smoke: a kernel was not launched: {launches}")
     return {"finals": finals, "missions": summary["missions"], "launches": launches, "seconds": wall}
+
+
+# path 8: tiles other than the default 16x32, and the profiling scripts
+P8_TILES = {"32x32": (32, 32), "16x16": (16, 16), "8x16": (8, 16)}
+P8_DIR = Path("build/path8")
+P8_CLI_STEPS = 2  # the second step's frame comes from the first plan step
+P8_CLI = ["mapper.raster.tile_h=32", "mapper.raster.tile_w=32", f"max_steps={P8_CLI_STEPS}",
+          f"experiment.output_dir={P8_DIR / 'cli_mission'}", "experiment.exp_id=chip_smoke"]
+P8_SCRIPT_STEPS = 2  # BENCH_STEPS of the scripts' runs: full width, cut depth
+P8_TRACED = {"profile_step": "phases", "profile_planner": "timings"}  # the traced scripts' records of phases
+P8_PLANNER_CANDIDATES = 25  # profile_planner's candidates here (a plan step's 100 in full runs)
+
+
+def tile_views(state, buf, cfg) -> dict:
+    """Keyframe 5's view at each tile of P8_TILES (`RasterConfig()` but the
+    tile), built while path 1's map lives: {tile: (the forward wrapper's
+    arguments, as `compare` builds them, and the stats wrapper's,
+    `stats_view`)}."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.render import binning, renderer
+    from activegs_torch.render import preprocess as pp
+    from activegs_torch.render.types import Camera, RasterConfig
+
+    dev = state.means.device
+    attrs = gm.attrs_of(gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity)), cfg)
+    _, _, ext, intr = kf.decode_frames(buf, torch.tensor([buf.count - 1], device=dev))
+    cam, shape = Camera(ext[0], intr[0]), (RES, RES)
+    views = {}
+    for name, (th, tw) in P8_TILES.items():
+        rcfg = RasterConfig(tile_h=th, tile_w=tw)
+        _, _, ntx, _ = binning.bin_tile_dims(shape, rcfg)
+        with torch.no_grad():
+            p2d, _, dz, iv = pp.preprocess(attrs, cam, shape, rcfg)
+            budget = trainer.pick_entry_bucket(int(binning.entry_count(p2d, iv, shape, rcfg)))
+            b = binning.bin_entries(p2d, dz, iv, shape, rcfg, budget)
+            ent = renderer.gather_entries(p2d, b.gid)
+        views[name] = ((ent, b.tile_start, b.tile_len, ntx, rcfg), stats_view(state, buf, cfg, rcfg))
+    return views
+
+
+def tiles_phase(views: dict, tops: dict) -> dict:
+    """Path 8 (kernels): on keyframe 5's view at each tile of P8_TILES
+    (`tile_views`), fwd and bwd, f32 and bf16, and at 32x32 stats too, each
+    held against its plain version at paths 1 and 3's tolerances (fwd
+    images 2e-5, depth 1e-4, the same stop rows; bwd per-entry gradients
+    3e-4 scaled, bf16 each row 2e-3 of its largest; stats `check_stats`)
+    and timed (CUDA events, a median of TIMED_LAUNCHES; stats also by
+    device time, replay and ranking), with its plain version's time; each
+    32x32 kernel gets the bounds of PERF.md section 6 (data sheet, the
+    probe's measured rates, and the forward's live work). Returns {kernel
+    name: {tile: record}}."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS
+
+    img_rows = [r for r in range(O_TRANS + 1) if r != O_DEPTH]
+    recs = {}
+    for tile, (fwd_args, stats_args) in views.items():
+        ent, ts, tl, ntx, rcfg = fwd_args
+        for bf16 in (False, True):
+            cfg = dataclasses.replace(rcfg, bf16_pairs=bf16)
+            sfx = "_bf16" if bf16 else ""
+            args = (ent, ts, tl, ntx, cfg)
+            o_k, o_p = cp.composite_fwd(*args), cp.composite_fwd_plain(*args)
+            e_img = float((o_k[:, img_rows] - o_p[:, img_rows]).abs().max())
+            e_dep = float((o_k[:, O_DEPTH] - o_p[:, O_DEPTH]).abs().max())
+            stop_ok = torch.equal(o_k[:, O_STOP], o_p[:, O_STOP])
+            check(e_img <= 2e-5 and e_dep <= 1e-4 and stop_ok, f"fwd{sfx} at {tile} tiles disagrees with its plain "
+                  f"version: image {e_img:.3g} depth {e_dep:.3g} stop rows equal {stop_ok}")
+            stop = o_k[:, O_STOP, 0]
+            pairs = real_pairs(tl, stop, cfg.chunk, cfg.tile_pixels)
+            g = torch.randn(o_k.shape, generator=torch.Generator(device=ent.device).manual_seed(SEED),
+                            device=ent.device)
+            g[:, O_TRANS + 1 :] = 0.0
+            d_k, d_p = cp.composite_bwd(*args[:3], o_k, g, ntx, cfg), cp.composite_bwd_plain(*args[:3], o_k, g, ntx, cfg)
+            rows = [float((d_k[r] - d_p[r]).abs().max() / d_p[r].abs().max().clamp(min=1e-12)) for r in range(18)]
+            e_bwd = max(rows) if bf16 else scaled_err(d_k, d_p)
+            check(e_bwd <= (2e-3 if bf16 else 3e-4), f"bwd{sfx} at {tile} tiles disagrees with its plain version: "
+                  f"{e_bwd:.3g}")
+            live, all_rows = cp.live_warp_rows(*args[:3], stop, ntx, cfg)
+            calls = {
+                "composite_fwd": (lambda a=args: cp.composite_fwd(*a), lambda a=args: cp.composite_fwd_plain(*a),
+                                  max(e_img, e_dep), 18 * ent.shape[1] * 4 + o_k.numel() * 4),
+                "composite_bwd": (lambda a=args, o=o_k, gg=g: cp.composite_bwd(*a[:3], o, gg, *a[3:]),
+                                  lambda a=args, o=o_k, gg=g: cp.composite_bwd_plain(*a[:3], o, gg, *a[3:]),
+                                  float((d_k - d_p).abs().max()),
+                                  18 * ent.shape[1] * 4 + 2 * o_k.numel() * 4 + d_k.numel() * 4),
+            }
+            s_pairs = None
+            if tile == "32x32":
+                s_args = (*stats_args[:-1], dataclasses.replace(stats_args[-1], bf16_pairs=bf16))
+                e_imp = check_stats(f"{KF_STATS_VIEW} at 32x32 tiles", s_args)
+                s_stop = cp.composite_fwd(*s_args[:3], *s_args[5:])[:, O_STOP, 0]
+                s_pairs = real_pairs(s_args[2], s_stop, cfg.chunk, cfg.tile_pixels)
+                calls["composite_stats"] = (lambda a=s_args: cp.composite_stats(*a),
+                                            lambda a=s_args: cp.composite_stats_plain(*a), e_imp,
+                                            18 * s_args[0].shape[1] * 4 + s_args[3].numel() * 4
+                                            + 2 * s_args[0].shape[1] * 4)
+            del o_p, d_k, d_p
+            for name, (kfn, pfn, err, nbytes) in calls.items():
+                n_pairs = s_pairs if name == "composite_stats" else pairs
+                ms = time_ms(kfn, TIMED_LAUNCHES)
+                plain_ms = time_ms(pfn, PLAIN_RUNS if tile == "32x32" else 1)
+                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pairs": n_pairs,
+                       "tiles": len(ts), "cluster_blocks": cp.fwd_cluster_size(cfg) if name == "composite_fwd" else None}
+                if name == "composite_stats":
+                    kern = cp.stats_bf16_kernel if bf16 else cp.stats_kernel
+                    parts = kernel_device_ms(kfn, TIMED_LAUNCHES, kern, "stats_kernel<", "tile_rank_kernel")
+                    rec["device_ms"] = parts[0][0] + parts[1][0]
+                if tile == "32x32":
+                    if bf16:
+                        rec.update(bf16_bounds(name, n_pairs, nbytes, tops))
+                    else:
+                        t_ops = n_pairs * OPS_PER_PAIR[name] / PEAK_FP32_FLOPS * 1e3
+                        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                        rec.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                   measured_rate_bound_ms=measured_rate_bound_ms(name, n_pairs, tops))
+                    if name == "composite_fwd" and not bf16:
+                        rec["live_work_bound_ms"] = live_work_bound_ms(n_pairs, 32 * live, tops)
+                if name != "composite_stats":
+                    rec["live_row_share"] = live / all_rows
+                if tile == "32x32" and (not bf16 or name == "composite_stats"):
+                    rec["build"] = kernel_build(cp, name + sfx, cfg)
+                    print(f"{name}{sfx} build at 32x32 tiles: {rec['build']}")
+                recs.setdefault(name + sfx, {})[tile] = rec
+                print(f"{name}{sfx}, {KF_VIEW} at {tile} tiles ({len(ts)} tiles"
+                      + (f", clusters of {rec['cluster_blocks']} blocks of {cfg.tile_pixels // rec['cluster_blocks']} "
+                         f"threads" if rec["cluster_blocks"] else "")
+                      + f"): against plain, max abs err {err:.3g}; {ms:.4f} ms (CUDA events, median of "
+                      f"{TIMED_LAUNCHES})" + (f", device {rec['device_ms']:.4f} ms" if "device_ms" in rec else "")
+                      + f"; plain {plain_ms:.2f} ms"
+                      + (f"; bound {rec['bound_ms']:.4f} ms data sheet ({rec['bound_by']}), "
+                         f"{rec['measured_rate_bound_ms']:.4f} ms at the probe's measured rates" if "bound_ms" in rec
+                         else "")
+                      + (f", live-work bound {rec['live_work_bound_ms']:.4f} ms" if "live_work_bound_ms" in rec else "")
+                      + f" ({n_pairs} pairs)")
+    return recs
+
+
+def tile_mission_phase() -> dict:
+    """Path 8 (mission): `activegs_torch.apps.main.main()` with 32x32 tiles
+    (P8_CLI: the port's own configs at full width otherwise, 512x512,
+    capacity 2^19, 100 candidates at 128x128) for P8_CLI_STEPS steps, the
+    counters zeroed before and read after: spawn, train, post_process and
+    a plan step, every f32 kernel launched and no bf16 instance; the
+    losses finite. Returns {kernel: launches}."""
+    from activegs_torch.apps import main as app
+    from activegs_torch.mapping.mapper import IncrementalMapper
+    from activegs_torch.render import composite as cp
+
+    step, losses = IncrementalMapper.step, []
+
+    def counted_step(mapper):
+        st = step(mapper)
+        losses.append(st["loss"])
+        return st
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(IncrementalMapper, "step", counted_step):
+        mapper = app.main(P8_CLI)
+    torch.cuda.synchronize()
+    launches = _launches()
+    rc = mapper.raster_cfg
+    print(f"tile mission (python -m activegs_torch.apps.main {' '.join(P8_CLI)}): {len(losses)} steps in "
+          f"{time.perf_counter() - t0:.2f} s, tiles {rc.tile_h}x{rc.tile_w}, losses "
+          + " ".join(f"{x:.5f}" for x in losses) + f"; launches {launches}")
+    check((rc.tile_h, rc.tile_w) == (32, 32), f"tile mission: tiles {rc.tile_h}x{rc.tile_w}")
+    check(len(losses) == P8_CLI_STEPS and all(math.isfinite(x) for x in losses), f"tile mission losses {losses}")
+    check(all(launches[k.name] > 0 for k in cp.KERNELS) and all(launches[k.name] == 0 for k in cp.BF16_KERNELS),
+          f"tile mission launches {launches}")
+    return launches
+
+
+def scripts_phase() -> dict:
+    """Path 8 (scripts): each profiling script of `activegs_torch/scripts/`
+    once through its `main`, at full width and BENCH_STEPS=P8_SCRIPT_STEPS
+    (`profile_planner` over P8_PLANNER_CANDIDATES candidates), the counters
+    zeroed before each and read after; checks each closing JSON line, and
+    that each phase that `profile_step` and `profile_planner` trace
+    recorded every device operation its runtime calls launched. Returns
+    {script: {"line": its figures, "launches"}}."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.scripts import bench, kernel_overhead, profile_bwd, profile_mission_train
+    from activegs_torch.scripts import profile_planner, profile_step, profiling, tile_scan
+
+    runs = {
+        "tile_scan": lambda: tile_scan.main([]),
+        "kernel_overhead": lambda: kernel_overhead.main([]),
+        "profile_bwd": lambda: profile_bwd.main([]),
+        "profile_step": lambda: profile_step.main(["runs=1", f"trace={P8_DIR / 'trace'}"]),
+        "profile_planner": lambda: profile_planner.main([f"cands={P8_PLANNER_CANDIDATES}", "runs=1"]),
+        "profile_mission_train": lambda: profile_mission_train.main([]),
+        "bench_scaling": lambda: bench.main(["scaling=1"]),
+    }
+    out = {}
+    with mock.patch.dict("os.environ", {"BENCH_STEPS": str(P8_SCRIPT_STEPS)}):
+        for name, run in runs.items():
+            _zero_launches()
+            t0 = time.perf_counter()
+            line = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            if name == "bench_scaling":  # its ranks run in processes of their own
+                launches = line["lines"][0]["launches"]
+            out[name] = {"line": line, "launches": launches, "seconds": wall}
+            print(f"script {name}: {wall:.2f} s; launches {launches}")
+            if name == "tile_scan":
+                check(len(line["rows"]) == 4 and line["errors"] == 0 and all(r["rays_per_s"] > 0 for r in line["rows"]),
+                      f"tile_scan: {line['rows']}")
+            elif name == "kernel_overhead":
+                check(line["empty_trans_min"] == line["empty_trans_max"] == 1.0 and line["empty_rows_abs_max"] == 0.0
+                      and line["value"] > 0, f"kernel_overhead: {line}")
+            elif name == "profile_bwd":
+                check(all(t["fwd"] > 0 and t["fwd_bwd"] > 0 for t in line["components"].values()), f"profile_bwd {line}")
+            elif name == "profile_step":
+                ph = line["phases"]
+                check(all(p["device_busy_ms"] > 0 for p in ph.values()) and line["op_ledger"]
+                      and all(abs(line["derived"][d]["host_ms"] - (ph[a]["host_ms"] - ph[b]["host_ms"])) < 1e-9
+                              for d, (a, b) in profile_step.DERIVED.items()), f"profile_step {line}")
+            elif name == "profile_planner":
+                check(all(t["device_busy_ms"] > 0 for t in line["timings"].values()), f"profile_planner {line}")
+            elif name == "profile_mission_train":
+                check(math.isfinite(line["value"]) and line["value"] > 0, f"profile_mission_train {line}")
+            else:
+                first = line["lines"][0]
+                check(first["mesh_devices"] == 1 and first["backend"] == "nccl" and first["grad_max_scaled_err"] <= 1e-5,
+                      f"bench scaling: {line['lines']}")
+            if name in P8_TRACED:
+                lossy = {k: (t["device_ops"], t["launched"]) for k, t in line[P8_TRACED[name]].items()
+                         if t["device_ops"] < t["launched"]}
+                check(not lossy, f"{name}: traces that recorded fewer device operations than were launched, in "
+                      f"{profiling.TRACES} tries (recorded, launched): {lossy}")
+            if name in ("tile_scan", "kernel_overhead", "profile_bwd", "profile_step", "profile_mission_train",
+                        "bench_scaling"):
+                check(launches["composite_fwd"] > 0 and launches["composite_bwd"] > 0, f"{name}: launches {launches}")
+            if name == "profile_planner":
+                check(launches["composite_fwd"] > 0, f"{name}: launches {launches}")
+    return out
 
 
 def main() -> None:
@@ -2785,6 +3042,7 @@ def main() -> None:
     fwd_build = kernel_build(cp, "composite_fwd", rcfg)
     print(f"composite_fwd build: {fwd_build}")
     errs, inputs, (live, rows), views = timed("1 checks", compare, state, buf, cfg, rcfg)
+    p8_views = timed("8 tile views", tile_views, state, buf, cfg)
     stats_cull = {view: stats_cull_line(view, args) for view, args in views["composite_stats"].items()}
     stats_builds = {name: kernel_build(cp, name, rcfg) for name in ("composite_stats", "composite_stats_bf16")}
     for name, build in stats_builds.items():
@@ -2804,8 +3062,10 @@ def main() -> None:
     check_stats(m_view, (*m_args[:-1], dataclasses.replace(m_args[-1], bf16_pairs=True)))
     stats_cull[m_view] = stats_cull_line(m_view, m_args)
     views["composite_stats"][m_view] = m_args
-    views["composite_stats_bf16"] = {view: (*a[:-1], dataclasses.replace(a[-1], bf16_pairs=True))
-                                     for view, a in views["composite_stats"].items()}
+    # the bf16 instances on the f32 instances' views (`--parent` holds each against the parent's)
+    for name in ("composite_fwd", "composite_bwd", "composite_stats"):
+        views[f"{name}_bf16"] = {view: (*a[:-1], dataclasses.replace(a[-1], bf16_pairs=True))
+                                 for view, a in views[name].items()}
     candidate, cand_view, plan_grid = timed("3 candidates", candidate_phase, mapper, tops)
     views["composite_fwd"].update(cand_view)
     profile = timed("3 plan step profile", plan_step_profile, mapper)
@@ -2832,7 +3092,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     p7["sweep_smoke"] = timed("7 sweep smoke", sweep_smoke_phase)
     p7_launches = {part: rec["launches"] for part, rec in p7.items()}
-    path_launches = {**p6_launches, **p7_launches}
+    torch.cuda.empty_cache()
+    p8_tiles = timed("8 tiles", tiles_phase, p8_views, tops)
+    del p8_views
+    torch.cuda.empty_cache()
+    p8 = {"tile_mission": {"launches": timed("8 tile mission", tile_mission_phase)}}
+    torch.cuda.empty_cache()
+    p8.update(timed("8 scripts", scripts_phase))
+    p8_launches = {part: rec["launches"] for part, rec in p8.items()}
+    path_launches = {**p6_launches, **p7_launches, **p8_launches}
     pairs = kf_batch["kf_batch_pairs"]
     kf_batch.update(kf_batch_bwd_bound_ms=pairs * OPS_PER_PAIR["composite_bwd"] / PEAK_FP32_FLOPS * 1e3,
                     kf_batch_bwd_measured_rate_bound_ms=measured_rate_bound_ms("composite_bwd", pairs, tops))
@@ -2862,6 +3130,7 @@ def main() -> None:
                          plan_step_profile=profile, **{"1024x1024": fwd_1024}, offline_eval=offline)
         if name == "composite_bwd":
             extra.update(**kf_batch, fused_view_kernel=fused)
+        extra["tiles"] = p8_tiles[name]
         if name == "composite_stats":
             extra.update(live_row_share=stats_cull[KF_STATS_VIEW]["live_row_share"],
                          build=stats_builds[name], views=stats_cull, device_ms=stats_device,
@@ -2904,6 +3173,7 @@ def main() -> None:
             "library_ms": None,
             "measured_rate_bound_ms": recs[0]["measured_rate_bound_ms"],
             "f32_ms": recs[0]["f32_ms"],
+            "tiles": p8_tiles[kern.name],
             **({"live_row_share": recs[0]["live_row_share"], "build": stats_builds[kern.name],
                 "turns": stats_turns} if kern.name in stats_builds else {}),
             "views": recs,
@@ -2920,6 +3190,7 @@ def main() -> None:
                                      for part, rec in p6.items()}))
     print("path 7: " + json.dumps({part: {k: v for k, v in rec.items() if k not in ("missions",)}
                                      for part, rec in p7.items()}, default=str))
+    print("path 8: " + json.dumps({"tiles": p8_tiles, **p8}, default=str))
     print("phase seconds: " + json.dumps({k: round(v, 2) for k, v in phase_s.items()})
           + f"; all phases {sum(phase_s.values()):.1f} s")
     print(json.dumps({"kernels": kernels}))

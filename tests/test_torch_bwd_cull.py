@@ -16,7 +16,9 @@ the reference's 64x64 scenes and on a scene made to corner the cull
 
 Both hold for bf16 pair math too (`bf16`: K = 128, `bf16_pairs`; the terms
 are rebuilt in the rounding contract of `render/composite.py`, and the
-clamp is alpha_max rounded to bf16).
+clamp is alpha_max rounded to bf16), for a 1024-pixel tile (`t32x32`) and
+for a tile 16 pixels wide (`t8x16`), where a 32-pixel row of the kernel
+(one warp) spans two pixel rows of the tile.
 """
 
 import dataclasses
@@ -35,6 +37,10 @@ from test_torch_render import SCENES
 
 CFGS = {"k128": t_like(tt.RasterConfig, CFG), "k8": t_like(tt.RasterConfig, CFG_SMALL_CHUNK)}
 CFGS["bf16"] = dataclasses.replace(CFGS["k128"], bf16_pairs=True)
+# a 1024-pixel tile (32x32: 32 warps, a block of 1024 threads) and a
+# tile 16 pixels wide (8x16: a warp spans two pixel rows)
+CFGS["t32x32"] = dataclasses.replace(CFGS["k128"], tile_h=32, tile_w=32)
+CFGS["t8x16"] = dataclasses.replace(CFGS["k128"], tile_h=8, tile_w=16)
 CASES = {
     "random": lambda: t_attrs(SCENES["random"]()),
     "opaque": lambda: t_attrs(SCENES["opaque"]()),

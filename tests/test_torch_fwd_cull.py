@@ -4,7 +4,7 @@
 pixel, keeping a running in-chunk product `excl`, the transmittance `trans`
 and 8 accumulators. It skips the depth, weight and accumulations of every
 pair with alpha == 0, and it renders a tile with a cluster of C blocks,
-each owning tile_h / C pixel rows, that stop together: a chunk runs while
+each owning P / C consecutive pixels of the tile, that stop together: a chunk runs while
 the OR over the C blocks of each block's "some pixel has T > term_eps" is
 set. The kernel cannot run here, so this file emulates its algorithm pixel
 by pixel in PyTorch (vectorized over tiles and pixels, sequential over
@@ -23,7 +23,10 @@ K = 8:
 
 Each also holds for bf16 pair math (`bf16`: K = 128, `bf16_pairs`), which
 the emulation follows in the rounding contract of `render/composite.py`:
-a pair whose bf16 alpha is 0 has w = +0 there too.
+a pair whose bf16 alpha is 0 has w = +0 there too; for a 1024-pixel tile
+(`t32x32`: 4 blocks of 256 threads); and for a tile 16 pixels wide
+(`t8x16`: 4 blocks of one warp, which spans two pixel rows: the cull tests
+alpha, not the geometry, so it stays exact).
 """
 
 import dataclasses
@@ -41,6 +44,10 @@ from test_torch_render import SCENES
 
 CFGS = {"k128": t_like(tt.RasterConfig, CFG), "k8": t_like(tt.RasterConfig, CFG_SMALL_CHUNK)}
 CFGS["bf16"] = dataclasses.replace(CFGS["k128"], bf16_pairs=True)
+# a 1024-pixel tile (32x32: 4 blocks of 256 threads, 8 pixel rows each) and
+# a tile 16 pixels wide (8x16: 4 blocks of one warp, which spans two rows)
+CFGS["t32x32"] = dataclasses.replace(CFGS["k128"], tile_h=32, tile_w=32)
+CFGS["t8x16"] = dataclasses.replace(CFGS["k128"], tile_h=8, tile_w=16)
 CASES = {
     "random": lambda: t_attrs(SCENES["random"]()),
     "opaque": lambda: t_attrs(SCENES["opaque"]()),
@@ -181,9 +188,18 @@ def test_tpv_grid_renders_each_view_as_alone(cfg_id):
 
 
 @pytest.mark.parametrize(
-    "tile_h, tile_w, want", [(16, 32, 4), (8, 16, 4), (6, 32, 2), (2, 32, 2), (4, 16, 2), (3, 32, 1), (1, 32, 1)]
+    "tile_h, tile_w, want",
+    [(16, 32, 4), (8, 16, 4), (6, 32, 2), (2, 32, 2), (4, 16, 2), (3, 32, 1), (1, 32, 1),
+     (32, 32, 4), (16, 16, 4), (1, 1024, 4), (3, 320, 2), (1, 544, None), (31, 32, None)],
 )
 def test_fwd_cluster_size(tile_h, tile_w, want):
-    """The largest of 4, 2, 1 that divides tile_h and leaves a multiple of
-    32 pixels a block."""
-    assert cp.fwd_cluster_size(tt.RasterConfig(tile_h=tile_h, tile_w=tile_w)) == want
+    """The largest of 4, 2, 1 that leaves a multiple of 32 pixels a block
+    and at most 512; a tile of more than 512 pixels in an odd number of
+    warps has none, and is refused."""
+    cfg = tt.RasterConfig(tile_h=tile_h, tile_w=tile_w)
+    if want is None:
+        with pytest.raises(ValueError, match="none splits"):
+            cp.fwd_cluster_size(cfg)
+    else:
+        assert cp.fwd_cluster_size(cfg) == want
+        assert (cfg.tile_pixels // want) % 32 == 0 and cfg.tile_pixels // want <= cp.FWD_BLOCK_THREADS

@@ -159,8 +159,12 @@ FWD_CFGS = {
     "k20": dataclasses.replace(CFGS["k128"], chunk=20),
     "c2": dataclasses.replace(CFGS["k128"], tile_h=6),
     "c1": dataclasses.replace(CFGS["k128"], tile_h=3),
+    # a 1024-pixel tile (4 blocks of 256 threads) and two 16 pixels wide
+    "t32x32": dataclasses.replace(CFGS["k128"], tile_h=32, tile_w=32),
+    "t16x16": dataclasses.replace(CFGS["k128"], tile_h=16, tile_w=16),
+    "t8x16": dataclasses.replace(CFGS["k128"], tile_h=8, tile_w=16),
 }
-FWD_CLUSTER = {"k128": 4, "k8": 4, "k20": 4, "c2": 2, "c1": 1}
+FWD_CLUSTER = {"k128": 4, "k8": 4, "k20": 4, "c2": 2, "c1": 1, "t32x32": 4, "t16x16": 4, "t8x16": 4}
 FWD_SCENES = {"small_surfels_64": (small_surfel_scene, SHAPE), "wall_edge_128": (wall_edge_scene, (128, 128))}
 
 
@@ -304,7 +308,7 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError):
         cp.composite_stats(ent, ts, ts, torch.zeros((2, 100), device=cuda), 0.03, 1, cfg)
     # the forward launch refuses a cluster size that does not split the
-    # tile into blocks of whole pixel rows and whole warps
+    # tile into blocks of whole warps
     out = torch.empty((2, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
     for bad in (3, 5, 0):
         with pytest.raises(RuntimeError, match="invalid argument"):
@@ -490,6 +494,103 @@ def test_stats_kernel_cull_matches_plain(cuda, scene_id, cfg_id):
         assert int((c_k != c_p).sum()) <= (2 if thres > 0.0 else 0), thres
         assert all(torch.equal(i_k.view(torch.int32), i.view(torch.int32)) and torch.equal(c_k, c)
                    for i, c in runs[1:]), thres
+
+# tiles other than the default 16x32: 32x32 (1024 pixels: the backward
+# and stats kernels' 1024-thread blocks, the forward's 4 blocks of 256
+# threads), 16x16 and 8x16 (16 pixels wide: a warp spans two pixel rows;
+# at K = 8, so that their tiles run several chunks and stop early)
+TILE_CFGS = {
+    "t32x32": dataclasses.replace(CFGS["k128"], tile_h=32, tile_w=32),
+    "t16x16": dataclasses.replace(CFGS["k8"], tile_h=16, tile_w=16),
+    "t8x16": dataclasses.replace(CFGS["k8"], tile_h=8, tile_w=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tile_id", list(TILE_CFGS))
+@pytest.mark.parametrize("scene_id", list(FWD_SCENES))
+def test_kernels_at_other_tiles_match_plain(cuda, scene_id, tile_id, bf16):
+    """The three kernels (f32, and the bf16 instances) at 32x32, 16x16 and
+    8x16 tiles against their plain versions, at the tolerances above:
+    images 2e-5, depth 1e-4, the chunks done equal, gradient rows 3e-4
+    (bf16 2e-3) of their largest, importance 1e-5 of its largest, counts
+    at most 2 apart; three launches of each bitwise equal; the forward
+    kernel split over a cluster of 4 blocks."""
+    cfg = dataclasses.replace(TILE_CFGS[tile_id], bf16_pairs=bf16)
+    make, shape = FWD_SCENES[scene_id]
+    args, ntx = scene_entries(make(cuda), cfg, cuda, shape)
+    assert cp.fwd_cluster_size(cfg) == 4
+    kernels = cp.BF16_KERNELS if bf16 else cp.KERNELS
+    n0 = [k.launches for k in kernels]
+    outs = [cp.composite_fwd(*args, ntx, cfg) for _ in range(3)]
+    o_k = outs[0]
+    g = torch.randn(o_k.shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g[:, tt.O_TRANS + 1 :] = 0.0
+    grads = [cp.composite_bwd(*args, o_k, g, ntx, cfg) for _ in range(3)]
+    m = (torch.rand(len(args[1]), cfg.tile_pixels, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda) > 0.3).float()
+    stats = [cp.composite_stats(*args, m, 0.03, ntx, cfg) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [n + 3 for n in n0]
+    o_p = cp.composite_fwd_plain(*args, ntx, cfg)
+    rows = [r for r in range(tt.O_TRANS + 1) if r != tt.O_DEPTH]
+    torch.testing.assert_close(o_k[:, rows], o_p[:, rows], rtol=0, atol=2e-5)
+    torch.testing.assert_close(o_k[:, tt.O_DEPTH], o_p[:, tt.O_DEPTH], rtol=0, atol=1e-4)
+    assert torch.equal(o_k[:, tt.O_STOP :], o_p[:, tt.O_STOP :])
+    (assert_bwd_rows_close_bf16 if bf16 else assert_bwd_rows_close)(
+        grads[0], cp.composite_bwd_plain(*args, o_k, g, ntx, cfg)
+    )
+    i_p, c_p = cp.composite_stats_plain(*args, m, 0.03, ntx, cfg)
+    assert float((stats[0][0] - i_p).abs().max()) <= 1e-5 * float(i_p.abs().max())
+    assert int((stats[0][1] != c_p).sum()) <= 2
+    assert all(torch.equal(outs[0].view(torch.int32), o.view(torch.int32)) for o in outs[1:])
+    assert all(torch.equal(grads[0].view(torch.int32), d.view(torch.int32)) for d in grads[1:])
+    assert all(torch.equal(stats[0][0], i) and torch.equal(stats[0][1], c) for i, c in stats[1:])
+    live, all_rows = cp.live_warp_rows(*args, o_k[:, tt.O_STOP, 0], ntx, cfg)
+    assert 0 < live < all_rows
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_tiles_they_cannot_take(cuda):
+    """The wrappers raise ValueError for a tile of more than 1024 pixels, of
+    pixels that are not whole warps, or that the forward kernel cannot
+    split; below them, the launches refuse such a tile (cudaErrorInvalidValue)
+    rather than run it some other way."""
+    ent = torch.zeros((tt.PARAM_DIM, 256), device=cuda)
+    ts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for th, tw in ((32, 64), (17, 32), (1, 16)):
+        cfg = tt.RasterConfig(tile_h=th, tile_w=tw)
+        out = torch.zeros((2, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
+        with pytest.raises(ValueError, match="tile of"):
+            cp.composite_fwd(ent, ts, ts, 1, cfg)
+        with pytest.raises(ValueError, match="tile of"):
+            cp.composite_bwd(ent, ts, ts, out, out, 1, cfg)
+        with pytest.raises(ValueError, match="tile of"):
+            cp.composite_stats(ent, ts, ts, torch.zeros((2, cfg.tile_pixels), device=cuda), 0.03, 1, cfg)
+    wide = tt.RasterConfig(tile_h=32, tile_w=64)  # 2048 pixels
+    out = torch.zeros((2, tt.OUT_ROWS, wide.tile_pixels), device=cuda)
+    order = torch.empty(2, dtype=torch.int32, device=cuda)
+    imp = torch.zeros((1, 256), device=cuda)
+    for kern in (cp.bwd_kernel, cp.bwd_bf16_kernel):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            kern.launch(ent.data_ptr(), 256, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), out.data_ptr(),
+                        ent.data_ptr(), order.data_ptr(), 2, 2, *cp._tail(1, wide, cuda))
+    for kern in (cp.stats_kernel, cp.stats_bf16_kernel):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            kern.launch(ent.data_ptr(), 256, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 0.03, imp.data_ptr(),
+                        imp.data_ptr(), order.data_ptr(), 2, *cp._tail(1, wide, cuda))
+    # a 32x32 tile in one block would be 1024 threads: the forward kernel
+    # refuses that cluster size, and those that do not split the tile,
+    # instead of launching past its bounds
+    cfg = TILE_CFGS["t32x32"]
+    out = torch.zeros((2, tt.OUT_ROWS, cfg.tile_pixels), device=cuda)
+    for bad in (1, 3, 5):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cp.fwd_kernel.launch(ent.data_ptr(), 256, ts.data_ptr(), ts.data_ptr(), out.data_ptr(), 2, 2, bad,
+                                 *cp._tail(1, cfg, cuda))
+    torch.cuda.synchronize()
+
 
 @pytest.mark.cuda
 def test_bf16_kernels_refuse_what_the_f32_kernels_refuse(cuda):

@@ -20,9 +20,11 @@ test `test_stats_tile_order_puts_the_longest_tiles_first` holds it.)
 The kernel cannot run here, so this file emulates both algorithms lane by
 lane in PyTorch on the same masked weights (the kernel's op order: alpha
 from `eval_alpha_depth_cols`, a float32 running product per entry) and
-shows, on the 64x64 scenes of `test_torch_fwd_cull.py` at K = 128, K = 8
-and under bf16 pair math, with a mask that zeroes whole warps (some with
--0.0) and thresholds 0.03, 0 and -1:
+shows, on the 64x64 scenes of `test_torch_fwd_cull.py` at K = 128, K = 8,
+under bf16 pair math, for a 1024-pixel tile (32x32: 32 warps, a block of
+1024 threads) and for a tile 16 pixels wide (8x16: a warp spans two pixel
+rows), with a mask that zeroes whole warps (some with -0.0) and thresholds
+0.03, 0 and -1:
 
 (a) the redesign's outputs are the first design's bit for bit;
 (b) they agree with `composite.composite_stats_plain` (importance 1e-5 of
