@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 def apply_rotation(rot: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) @ (..., 3) written out elementwise (the reference's op
@@ -65,9 +67,9 @@ def invert_rigid(extrinsic: torch.Tensor) -> torch.Tensor:
     t = extrinsic[..., :3, 3]
     rt = r.transpose(-1, -2)
     top = torch.cat([rt, -apply_rotation(rt, t)[..., None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=extrinsic.dtype, device=extrinsic.device
-    ).expand(top.shape[:-2] + (1, 4))
+    with tracing.host_read("invert_rigid"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extrinsic.dtype, device=extrinsic.device)
+    bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import geometry as geo
 from ..core import image_ops
 from ..core import quaternions as quat
@@ -319,7 +320,8 @@ def prune(state: GaussianMapState, cfg: MapConfig, visible_any: torch.Tensor):
     then compact the live prefix with one stable sort. Returns
     (new_state, n_pruned)."""
     keep = state.alive & visible_any & (torch.sigmoid(state.opacities_raw) >= cfg.prune_opacity)
-    n_keep = int(keep.sum())
+    with tracing.host_read("prune.count"):
+        n_keep = int(keep.sum())
     perm = torch.sort((~keep).to(torch.int8), stable=True).indices
     new = dataclasses.replace(state, count=n_keep, **{f: getattr(state, f)[perm] for f in FIELDS})
     return new, state.count - n_keep

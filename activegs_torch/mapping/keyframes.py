@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 @dataclasses.dataclass
 class KeyframeBuffer:
@@ -118,7 +120,8 @@ def sample_weighted(buf: KeyframeBuffer, generator: torch.Generator, batch: int,
     generator; the draws move to the buffer's device."""
     cap = buf.capacity
     n_rest = max(buf.count - min(active, buf.count), 0)
-    u = torch.rand(cap, generator=generator).to(buf.performance.device)
+    with tracing.host_read("sample_weighted.draws"):
+        u = torch.rand(cap, generator=generator).to(buf.performance.device)
     in_rest = torch.arange(cap, device=u.device) < n_rest
     weights = torch.where(in_rest, buf.performance + 1e-6, 0.0)
     g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
@@ -131,7 +134,8 @@ def sample_uniform(buf: KeyframeBuffer, generator: torch.Generator, batch: int, 
     replacement from the older rest."""
     cap = buf.capacity
     n_rest = max(buf.count - min(active, buf.count), 0)
-    u = torch.rand(cap, generator=generator).to(buf.performance.device)
+    with tracing.host_read("sample_uniform.draws"):
+        u = torch.rand(cap, generator=generator).to(buf.performance.device)
     scores = torch.where(torch.arange(cap, device=u.device) < n_rest, u, -torch.inf)
     return _draw(buf, scores, batch, active)
 

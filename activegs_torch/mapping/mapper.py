@@ -17,12 +17,12 @@ only rank 0 writes through the recorder and the viewer.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..io.recorder import MissionRecorder
 from ..render.types import RasterConfig
 from . import gaussians as gm
@@ -33,7 +33,8 @@ from . import voxel_map as vm
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with tracing.host_read("mapper.synchronize"):
+            torch.cuda.synchronize(dev)
 
 
 def mapping_step(
@@ -47,56 +48,63 @@ def mapping_step(
 ):
     """Integrate one posed RGB-D frame into the map. Returns (state, buf,
     stats) with the loss, spawn/prune counts, truncation telemetry and
-    per-phase wall times (seconds, the device synchronized at each mark).
+    per-phase wall times (seconds, the spans `map.<phase>`, each ending with
+    the device synchronized).
     `group` (a `parallel.ViewGroup`) splits the training views over its
     ranks. Under `cfg.resample_per_step` the batch is drawn at every step
     inside `train_keyframe`, so there are no view stats, buckets or
     truncation telemetry (-1)."""
     dev = state.means.device
     phase_t = {}
-    t0 = time.perf_counter()
 
-    def mark(name):
+    with tracing.span("map.spawn") as sp:
+        state, n_new, n_spawn_dropped = gm.spawn(
+            state, frame, cfg, raster_cfg,
+            render_bucket=gm.bucket_capacity(state.count, cfg.capacity),
+        )
+        buf = kfb.add_frame(buf, frame)
         _sync(dev)
-        phase_t[name] = time.perf_counter() - t0 - sum(phase_t.values())
+    phase_t["spawn"] = sp.seconds
 
-    state, n_new, n_spawn_dropped = gm.spawn(
-        state, frame, cfg, raster_cfg,
-        render_bucket=gm.bucket_capacity(state.count, cfg.capacity),
-    )
-    buf = kfb.add_frame(buf, frame)
-    mark("spawn")
+    with tracing.span("map.view_stats") as sp:
+        cap_b = gm.bucket_capacity(state.count, cfg.capacity)
+        sub = gm.slice_state(state, cap_b)
+        views = subset_bucket = entry_budget = None
+        if not cfg.resample_per_step:
+            views = trainer.draw_batch(buf, cfg, generator)
+            max_in_view, max_entries = trainer.keyframe_view_stats(sub, buf, views[0], cfg, raster_cfg)
+            subset_bucket = trainer.pick_subset_bucket(max_in_view, cap_b)
+            entry_budget = trainer.pick_entry_bucket(max_entries)
+        _sync(dev)
+    phase_t["view_stats"] = sp.seconds
 
-    cap_b = gm.bucket_capacity(state.count, cfg.capacity)
-    sub = gm.slice_state(state, cap_b)
-    views = subset_bucket = entry_budget = None
-    if not cfg.resample_per_step:
-        views = trainer.draw_batch(buf, cfg, generator)
-        max_in_view, max_entries = trainer.keyframe_view_stats(sub, buf, views[0], cfg, raster_cfg)
-        subset_bucket = trainer.pick_subset_bucket(max_in_view, cap_b)
-        entry_budget = trainer.pick_entry_bucket(max_entries)
-    mark("view_stats")
-    sub, buf, loss, aux = trainer.train_keyframe(
-        sub, buf, views, cfg, raster_cfg, subset_bucket=subset_bucket, entry_budget=entry_budget, group=group,
-        generator=generator,
-    )
-    loss = float(loss)
-    mark("train")
+    with tracing.span("map.train") as sp:
+        sub, buf, loss, aux = trainer.train_keyframe(
+            sub, buf, views, cfg, raster_cfg, subset_bucket=subset_bucket, entry_budget=entry_budget, group=group,
+            generator=generator,
+        )
+        with tracing.host_read("mapping_step.loss"):
+            loss = float(loss)
+        _sync(dev)
+    phase_t["train"] = sp.seconds
 
-    occupancy = state.count / cfg.capacity
-    early_prune = occupancy > cfg.prune_occupancy
-    require_prune = buf.count % cfg.prune_interval == 0 or early_prune
-    stats_iv, stats_ents = trainer.stats_view_budgets(sub, buf, cfg, raster_cfg, require_prune)
-    sub, n_pruned = trainer.post_process(
-        sub, buf, frame["depth_range"][1], cfg, raster_cfg, require_prune,
-        stats_bucket=trainer.pick_subset_bucket(stats_iv, cap_b),
-        stats_entry_budget=trainer.pick_entry_bucket(stats_ents),
-    )
-    state = gm.write_back(state, sub)
-    mark("post")
+    with tracing.span("map.post") as sp:
+        occupancy = state.count / cfg.capacity
+        early_prune = occupancy > cfg.prune_occupancy
+        require_prune = buf.count % cfg.prune_interval == 0 or early_prune
+        stats_iv, stats_ents = trainer.stats_view_budgets(sub, buf, cfg, raster_cfg, require_prune)
+        sub, n_pruned = trainer.post_process(
+            sub, buf, frame["depth_range"][1], cfg, raster_cfg, require_prune,
+            stats_bucket=trainer.pick_subset_bucket(stats_iv, cap_b),
+            stats_entry_budget=trainer.pick_entry_bucket(stats_ents),
+        )
+        state = gm.write_back(state, sub)
+        _sync(dev)
+    phase_t["post"] = sp.seconds
 
-    num_dropped = int(aux["num_dropped"])
-    num_entries = int(aux["num_entries"])
+    with tracing.host_read("mapping_step.telemetry"):
+        num_dropped = int(aux["num_dropped"])
+        num_entries = int(aux["num_entries"])
     stats = {
         "loss": loss,
         "n_new": n_new,
@@ -216,16 +224,16 @@ class IncrementalMapper:
         counts, truncation telemetry, mapping phase times (spawn,
         view_stats, train, post, voxel) and the planner's phase times."""
         frame, path = self.get_new_dataframe()
-        t0 = time.perf_counter()
-        self.gm_state, self.keyframes, st = mapping_step(
-            self.gm_state, self.keyframes, frame, self.map_cfg, self.raster_cfg, self.generator, self.group
-        )
-        phase_t = st["phase_times"]
-        t1 = time.perf_counter()
-        self.vm_state = vm.update(self.vm_state, self.grid, frame)
-        _sync(self.device)
-        phase_t["voxel"] = time.perf_counter() - t1
-        t_mapping = time.perf_counter() - t0
+        with tracing.span("map.step") as step_span:
+            self.gm_state, self.keyframes, st = mapping_step(
+                self.gm_state, self.keyframes, frame, self.map_cfg, self.raster_cfg, self.generator, self.group
+            )
+            phase_t = st["phase_times"]
+            with tracing.span("map.voxel") as sp:
+                self.vm_state = vm.update(self.vm_state, self.grid, frame)
+                _sync(self.device)
+            phase_t["voxel"] = sp.seconds
+        t_mapping = step_span.seconds
 
         num_dropped, num_entries = st["num_dropped"], st["num_entries"]
         dropped_frac = round(dropped_fraction(num_dropped, num_entries), 5)

@@ -18,6 +18,7 @@ import warnings
 
 import torch
 
+from .. import tracing
 from ..core.image_ops import depth_to_normal
 from ..render import binning as rb
 from ..render import preprocess as rp
@@ -101,7 +102,8 @@ def batch_loss(
         )
     attrs = gm.attrs_of(dataclasses.replace(state, **params), cfg)
     packed = pack_attrs(attrs) if subsets is not None else None
-    background = torch.tensor(cfg.background, dtype=torch.float32, device=rgb_gt.device)
+    with tracing.host_read("batch_loss.background"):
+        background = torch.tensor(cfg.background, dtype=torch.float32, device=rgb_gt.device)
     cams = [Camera(extrinsic=extrinsics[i], intrinsic=intrinsics[i]) for i in range(v)]
     views = [attrs if subsets is None else subset_view(packed, subsets[i]) for i in range(v)]
     if cfg.fused_view_kernel and subsets is not None:
@@ -130,7 +132,8 @@ def batch_views(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sampler repeats frames: each distinct frame then renders once and
     weighs its count in `batch_loss`, the same mean as rendering every
     copy."""
-    return torch.unique(ids, return_counts=True)
+    with tracing.host_read("batch_views.unique"):
+        return torch.unique(ids, return_counts=True)
 
 
 def draw_batch(
@@ -154,7 +157,8 @@ def keyframe_view_stats(state, buf, ids, cfg: gm.MapConfig, raster_cfg: RasterCo
         p2d, _, _, iv = rp.preprocess(attrs0, Camera(ext, intr), (h, w), raster_cfg)
         ivs.append(iv.sum())
         ents.append(rb.entry_count(p2d, iv, (h, w), raster_cfg))
-    return int(torch.stack(ivs).max()), int(torch.stack(ents).max())
+    with tracing.host_read("keyframe_view_stats"):
+        return int(torch.stack(ivs).max()), int(torch.stack(ents).max())
 
 
 def _half_step_bucket(need: int, min_bucket: int) -> int:
@@ -212,6 +216,7 @@ def prepare_views(
     return bins, subsets
 
 
+@tracing.span("train.keyframe")
 def train_keyframe(
     state: gm.GaussianMapState,
     buf: kf.KeyframeBuffer,
@@ -242,8 +247,9 @@ def train_keyframe(
     subsets or entry budget (binning runs inside each render), and aux
     reads -1 (not tracked), as in the reference."""
     steps = cfg.optimization_steps if steps is None else steps
-    params = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in PARAM_FIELDS}
-    opt = make_optimizer(params, cfg)
+    with tracing.span("train.prepare"):
+        params = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in PARAM_FIELDS}
+        opt = make_optimizer(params, cfg)
     last_loss = torch.zeros((), device=state.means.device)
     if cfg.resample_per_step:
         # unsharded on every rank, as the reference's resample loop ignores
@@ -251,45 +257,56 @@ def train_keyframe(
         # state, so the ranks stay in step without a collective
         draw = draw or (lambda b: draw_batch(b, cfg, generator))
         for _ in range(steps):
-            ids, counts = draw(buf)
-            batch = kf.decode_frames(buf, ids)
-            opt.zero_grad(set_to_none=True)
-            loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg)
-            loss.backward()
-            opt.step()
-            kf.update_performance(buf, ids, per_frame)
+            with tracing.span("train.prepare"):
+                ids, counts = draw(buf)
+                batch = kf.decode_frames(buf, ids)
+            with tracing.span("train.update"):
+                opt.zero_grad(set_to_none=True)
+            with tracing.span("train.forward"):
+                loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg)
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.update"):
+                opt.step()
+                kf.update_performance(buf, ids, per_frame)
             last_loss = loss.detach()
         new_state = dataclasses.replace(state, **{k: p.detach() for k, p in params.items()})
         return new_state, buf, last_loss, {"num_dropped": -1, "num_entries": -1}
 
-    ids, counts = views
-    batch = kf.decode_frames(buf, ids)
-    share = None
-    if group is not None:
-        from ..parallel import sharded
+    with tracing.span("train.prepare"):
+        ids, counts = views
+        batch = kf.decode_frames(buf, ids)
+        share = None
+        if group is not None:
+            from ..parallel import sharded
 
-        share = sharded.view_share(len(ids), group)
-    bins, subsets = prepare_views(state, batch, cfg, raster_cfg, subset_bucket, entry_budget, only=share)
+            share = sharded.view_share(len(ids), group)
+        bins, subsets = prepare_views(state, batch, cfg, raster_cfg, subset_bucket, entry_budget, only=share)
     for _ in range(steps):
-        opt.zero_grad(set_to_none=True)
+        with tracing.span("train.update"):
+            opt.zero_grad(set_to_none=True)
         if group is None:
-            loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg, bins, subsets)
-            loss.backward()
+            with tracing.span("train.forward"):
+                loss, per_frame = batch_loss(params, state, batch, counts, cfg, raster_cfg, bins, subsets)
+            with tracing.span("train.backward"):
+                loss.backward()
         else:
             loss, grads, per_frame = sharded.sharded_train_step(
                 params, state, batch, counts, group, cfg, raster_cfg, bins, subsets
             )
             for k, g in grads.items():
                 params[k].grad = g
-        opt.step()
-        kf.update_performance(buf, ids, per_frame)
+        with tracing.span("train.update"):
+            opt.step()
+            kf.update_performance(buf, ids, per_frame)
         last_loss = loss.detach()
     new_state = dataclasses.replace(state, **{k: p.detach() for k, p in params.items()})
     # truncation telemetry over the views binned here, summed over the ranks
     mine = [i for i, b in enumerate(bins) if b is not None]
     tele = torch.zeros(2, dtype=torch.int64, device=state.means.device)
     if mine:
-        c = counts[mine]
+        with tracing.host_read("train_keyframe.views"):
+            c = counts[mine]
         tele[0] = torch.sum(torch.stack([bins[i].num_dropped for i in mine]) * c)
         tele[1] = torch.sum(torch.stack([bins[i].tile_len.sum() for i in mine]) * c)
     if group is not None:
@@ -312,7 +329,8 @@ def stats_view_budgets(state, buf: kf.KeyframeBuffer, cfg: gm.MapConfig, raster_
         p2d, _, _, iv = rp.preprocess(attrs0, cam, (h, w), raster_cfg, front_only=True)
         ivs.append(iv.sum())
         ents.append(rb.entry_count(p2d, iv, (h, w), raster_cfg))
-    return int(torch.stack(ivs).max()), int(torch.stack(ents).max())
+    with tracing.host_read("stats_view_budgets"):
+        return int(torch.stack(ivs).max()), int(torch.stack(ents).max())
 
 
 @torch.no_grad()
@@ -336,7 +354,9 @@ def post_process(
     latest = max(buf.count - 1, 0)
 
     def stats_for(i):
-        _, depth, ext, intr = kf.decode_frames(buf, torch.tensor([i], device=buf.order.device))
+        with tracing.host_read("post_process.frame"):
+            rank = torch.tensor([i], device=buf.order.device)
+        _, depth, ext, intr = kf.decode_frames(buf, rank)
         return render_stats(
             attrs, Camera(ext[0], intr[0]), (h, w), raster_cfg,
             render_mask=(depth[0, 0] > 0.0).to(torch.float32), front_only=True,

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..mapping import gaussians as gm
 from ..render.types import Camera, RasterConfig
 
@@ -112,21 +113,22 @@ def sharded_train_step(
     sl = slice(share.start, share.stop)
     leaves = [params[k] for k in PARAM_FIELDS]
     if len(share):
-        loss, per_frame = batch_loss(
-            params, state, tuple(x[sl] for x in batch), counts[sl], cfg, raster_cfg,
-            None if bins is None else bins[sl], None if subsets is None else subsets[sl],
-        )
-        # batch_loss is the mean over this rank's draws: weigh it by their
-        # share of the batch's draws (the reference's loss * n_local / n_total)
-        w = counts.to(torch.float32)
-        loss = loss * (torch.sum(w[sl]) / torch.sum(w))
-        grads = torch.autograd.grad(loss, leaves)
+        with tracing.span("train.forward"):
+            loss, per_frame = batch_loss(
+                params, state, tuple(x[sl] for x in batch), counts[sl], cfg, raster_cfg,
+                None if bins is None else bins[sl], None if subsets is None else subsets[sl],
+            )
+            # batch_loss is the mean over this rank's draws: weigh it by their
+            # share of the batch's draws (the reference's loss * n_local / n_total)
+            w = counts.to(torch.float32)
+            loss = loss * (torch.sum(w[sl]) / torch.sum(w))
     else:
         loss = torch.zeros((), device=state.means.device)
         per_frame = torch.zeros(0, device=state.means.device)
-        grads = [torch.zeros_like(p) for p in leaves]
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
-    loss = all_reduce_sum(loss.detach().reshape(1).clone(), group)[0]
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(loss, leaves) if len(share) else [torch.zeros_like(p) for p in leaves]
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+        loss = all_reduce_sum(loss.detach().reshape(1).clone(), group)[0]
     parts = flat.split([p.numel() for p in leaves])
     grads = {k: g.view_as(p) for k, g, p in zip(PARAM_FIELDS, parts, leaves)}
     return loss, grads, gather_views(per_frame, share, v, group)

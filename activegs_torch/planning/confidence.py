@@ -14,11 +14,10 @@ stream has the same length. `candidate_view_stats` scores one view.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import tracing
 from ..mapping import gaussians as gm
 from ..mapping import voxel_map as vm
 from ..mapping.trainer import pick_entry_bucket, pick_subset_bucket
@@ -43,7 +42,8 @@ def _candidate_entry_stats(gm_state, candidates, intrinsic, shape, map_cfg, rast
         p2d, _, _, iv = rp.preprocess(attrs, Camera(extrinsic=ext, intrinsic=intrinsic), shape, raster_cfg)
         ents.append(rb.entry_count(p2d, iv, shape, raster_cfg))
         ivs.append(iv.sum())
-    return int(torch.stack(ents).max()), int(torch.stack(ivs).max())
+    with tracing.host_read("candidate_entry_stats"):
+        return int(torch.stack(ents).max()), int(torch.stack(ivs).max())
 
 
 @torch.no_grad()
@@ -162,33 +162,33 @@ def candidate_utilities(planner: PlanBase, gm_state, vstate, grid, candidates, s
     budget and bucket. Returns (explore, exploit, seconds)."""
     h, w = (int(round(planner.cfg.render_ratio * r)) for r in simulator.resolution)
     valid_masks, _ = planner._candidate_valid_masks(candidates, simulator, (h, w))
-    t0 = time.perf_counter()
     dev = gm_state.means.device
-    cands = torch.as_tensor(np.asarray(candidates, np.float32), device=dev)
-    max_ents, max_iv = _candidate_entry_stats(
-        gm_state, cands, simulator.intrinsic, (h, w), planner.map_cfg, planner.utility_raster_cfg
-    )
-    entry_budget = pick_entry_bucket(max_ents)
-    subset_bucket = pick_subset_bucket(max_iv, gm_state.capacity)
-    t_stats = time.perf_counter() - t0
-    args = (gm_state, vstate.unexplored, cands, simulator.intrinsic, valid_masks,
-            torch.tensor(simulator.depth_range, dtype=torch.float32, device=dev))
-    rest = (grid, (h, w), planner.map_cfg, planner.utility_raster_cfg)
-    opts = dict(entry_budget=entry_budget, explore_only=explore_only, subset_bucket=subset_bucket)
-    if planner.group is not None:
-        from ..parallel.sharded import sharded_candidate_utility
+    with tracing.span("plan.utility") as whole:
+        with tracing.span("plan.utility_stats") as stats:
+            with tracing.host_read("candidate_utilities.poses"):
+                cands = torch.as_tensor(np.asarray(candidates, np.float32), device=dev)
+            max_ents, max_iv = _candidate_entry_stats(
+                gm_state, cands, simulator.intrinsic, (h, w), planner.map_cfg, planner.utility_raster_cfg
+            )
+            entry_budget = pick_entry_bucket(max_ents)
+            subset_bucket = pick_subset_bucket(max_iv, gm_state.capacity)
+        with tracing.span("plan.utility_batch") as batch:
+            with tracing.host_read("candidate_utilities.depth_range"):
+                depth_range = torch.tensor(simulator.depth_range, dtype=torch.float32, device=dev)
+            args = (gm_state, vstate.unexplored, cands, simulator.intrinsic, valid_masks, depth_range)
+            rest = (grid, (h, w), planner.map_cfg, planner.utility_raster_cfg)
+            opts = dict(entry_budget=entry_budget, explore_only=explore_only, subset_bucket=subset_bucket)
+            if planner.group is not None:
+                from ..parallel.sharded import sharded_candidate_utility
 
-        explore, exploit = sharded_candidate_utility(*args, planner.group, *rest, **opts)
-    else:
-        explore, exploit = _confidence_utility_batch(*args, *rest, **opts)
-    explore, exploit = explore.cpu().numpy(), exploit.cpu().numpy()
-    t = time.perf_counter() - t0
+                explore, exploit = sharded_candidate_utility(*args, planner.group, *rest, **opts)
+            else:
+                explore, exploit = _confidence_utility_batch(*args, *rest, **opts)
+            with tracing.host_read("candidate_utilities.to_host"):
+                explore, exploit = explore.cpu().numpy(), exploit.cpu().numpy()
     # sub-phase telemetry, merged into step_stats' plan_times by plan()
-    planner.last_utility_times = {"stats": round(t_stats, 3), "batch": round(t - t_stats, 3)}
-    planner.last_utility_groups = len(utility_groups(
-        len(cands), gm_state.capacity, (h, w), planner.utility_raster_cfg, entry_budget, subset_bucket
-    ))
-    return explore, exploit, t
+    planner.last_utility_times = {"stats": round(stats.seconds, 3), "batch": round(batch.seconds, 3)}
+    return explore, exploit, whole.seconds
 
 
 class ConfidencePlanner(PlanBase):

@@ -13,13 +13,13 @@ masks it needs to the host once per step.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 
 import torch
 
+from .. import tracing
 from ..mapping import gaussians as gm
 from ..mapping import voxel_map as vm
 from ..render.types import RasterConfig
@@ -28,7 +28,8 @@ from .graph import VoxelGraph
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    with tracing.host_read("planner.to_host"):
+        return x.detach().cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -231,67 +232,66 @@ class PlanBase:
     def plan(self, gm_state, vstate, grid, simulator, recorder=None):
         t_planning = 0.0
         if self.initialized:
-            t0 = time.perf_counter()
-            centers = grid.centers
-            robot_space = (
-                np.linalg.norm(centers - self.pose[:3, 3], axis=1)
-                < self.cfg.robot_size
-            )
-            # one device pull serves traversability and both candidate
-            # generators (update_utility annotates ROI fields only, the
-            # occupancy-derived free mask is unaffected)
-            free_margin = _np(vm.free_mask_w_margin(vstate, grid, self.voxel_cfg))
-            traversable = free_margin | robot_space
-            if self.graph is None:
-                self.graph = VoxelGraph(grid.size, grid.dim)
-            self.graph.update_graph(traversable)
-            t_masks = time.perf_counter() - t0
+            with tracing.span("plan.masks") as masks:
+                centers = grid.centers
+                robot_space = (
+                    np.linalg.norm(centers - self.pose[:3, 3], axis=1)
+                    < self.cfg.robot_size
+                )
+                # one device pull serves traversability and both candidate
+                # generators (update_utility annotates ROI fields only, the
+                # occupancy-derived free mask is unaffected)
+                free_margin = _np(vm.free_mask_w_margin(vstate, grid, self.voxel_cfg))
+                traversable = free_margin | robot_space
+                if self.graph is None:
+                    self.graph = VoxelGraph(grid.size, grid.dim)
+                self.graph.update_graph(traversable)
 
-            if self.cfg.max_roi_sample_num > 0:
-                vstate = vm.update_utility(
-                    vstate,
-                    grid,
-                    self.voxel_cfg,
-                    gm_state.means,
-                    gm.normals_of(gm_state),
-                    gm.confidences_of(gm_state, self.map_cfg),
-                    torch.sigmoid(gm_state.opacities_raw),
-                    gm_state.alive,
-                    use_confidence=self.cfg.use_confidence,
-                )
-                roi_candidates = self.generate_roi_candidates(
-                    vstate, grid, self.cfg.max_roi_sample_num, free=free_margin
-                )
-            else:
-                roi_candidates = np.zeros((0, 4, 4), np.float32)
+            with tracing.span("plan.candidates") as roi_rand:
+                if self.cfg.max_roi_sample_num > 0:
+                    vstate = vm.update_utility(
+                        vstate,
+                        grid,
+                        self.voxel_cfg,
+                        gm_state.means,
+                        gm.normals_of(gm_state),
+                        gm.confidences_of(gm_state, self.map_cfg),
+                        torch.sigmoid(gm_state.opacities_raw),
+                        gm_state.alive,
+                        use_confidence=self.cfg.use_confidence,
+                    )
+                    roi_candidates = self.generate_roi_candidates(
+                        vstate, grid, self.cfg.max_roi_sample_num, free=free_margin
+                    )
+                else:
+                    roi_candidates = np.zeros((0, 4, 4), np.float32)
 
-            n_random = self.cfg.sample_num - len(roi_candidates)
-            random_candidates = (
-                self.generate_random_candidates(
-                    vstate, grid, n_random, free=free_margin
+                n_random = self.cfg.sample_num - len(roi_candidates)
+                random_candidates = (
+                    self.generate_random_candidates(
+                        vstate, grid, n_random, free=free_margin
+                    )
+                    if n_random > 0
+                    else np.zeros((0, 4, 4), np.float32)
                 )
-                if n_random > 0
-                else np.zeros((0, 4, 4), np.float32)
-            )
-            candidates = np.concatenate([roi_candidates, random_candidates])
-            t_gen = time.perf_counter() - t0
-            t_planning += t_gen
-            t_roi_rand = t_gen - t_masks
+                candidates = np.concatenate([roi_candidates, random_candidates])
+            t_masks, t_roi_rand = masks.seconds, roi_rand.seconds
+            t_planning += t_masks + t_roi_rand
 
             utilities, t_utility = self.cal_utility(
                 gm_state, vstate, grid, candidates, simulator
             )
             t_planning += t_utility
 
-            t0 = time.perf_counter()
-            wp_list, lengths = astar.search_goal(
-                self.pose[:3, 3],
-                candidates[:, :3, 3],
-                self.graph.traversable,
-                np.asarray(grid.bbox_min),
-                np.asarray(grid.size),
-            )
-            t_astar = time.perf_counter() - t0
+            with tracing.span("plan.astar") as search:
+                wp_list, lengths = astar.search_goal(
+                    self.pose[:3, 3],
+                    candidates[:, :3, 3],
+                    self.graph.traversable,
+                    np.asarray(grid.bbox_min),
+                    np.asarray(grid.size),
+                )
+            t_astar = search.seconds
             t_planning += t_astar
             # phase telemetry for step_stats: candidate generation (with
             # update_utility), utility renders, A*
@@ -360,12 +360,13 @@ class PlanBase:
         dev = simulator.device
         if not simulator.has_missing_surface:
             return torch.ones((len(candidates), h, w), dtype=torch.bool, device=dev), 0.0
-        t0 = time.perf_counter()
-        masks = []
-        for c in candidates:
-            m = simulator.simulate(torch.as_tensor(np.asarray(c), device=dev), valid_mask_only=True)
-            masks.append(resize_nearest(m, (h, w)))
-        return torch.stack(masks), time.perf_counter() - t0
+        with tracing.span("plan.valid_masks") as sp:
+            masks = []
+            for c in candidates:
+                m = simulator.simulate(torch.as_tensor(np.asarray(c), device=dev), valid_mask_only=True)
+                masks.append(resize_nearest(m, (h, w)))
+            masks = torch.stack(masks)
+        return masks, sp.seconds
 
 
 def resize_nearest(mask: torch.Tensor, shape) -> torch.Tensor:

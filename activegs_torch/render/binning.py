@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from .. import tracing
 from .types import P_CONIC_A, P_CONIC_B, P_CONIC_C, P_EXT_X, P_EXT_Y, P_OPACITY, RasterConfig
 
 
@@ -138,6 +139,7 @@ def stream_length(n: int, image_shape: tuple[int, int], cfg: RasterConfig, entry
     return min(_round_up(base + num_tiles * (kchunk - 1), kchunk), e_alloc)
 
 
+@tracing.span("render.binning")
 def bin_entries(
     params2d: torch.Tensor,
     depth_z: torch.Tensor,
@@ -163,7 +165,8 @@ def bin_entries(
     tile, sel, _, n_trunc = candidate_tiles(params2d, in_view, image_shape, cfg)
     tile_f = tile.reshape(-1).to(torch.int64)
     sel_f = sel.reshape(-1)
-    cand = torch.nonzero(sel_f).squeeze(1)  # enumeration order i*max_dup+j
+    with tracing.host_read("bin_entries.nonzero"):
+        cand = torch.nonzero(sel_f).squeeze(1)  # enumeration order i*max_dup+j
     ct = tile_f[cand]
     cd = depth_z.detach()[cand // max_dup]
     o1 = torch.sort(cd, stable=True).indices
@@ -172,7 +175,8 @@ def bin_entries(
     ct_s = ct[order]
     gid_s = cand[order] // max_dup
 
-    seg_len = torch.bincount(ct, minlength=num_tiles)
+    with tracing.host_read("bin_entries.bincount"):
+        seg_len = torch.bincount(ct, minlength=num_tiles)
     pad_len = (seg_len + kchunk - 1) // kchunk * kchunk
     start = torch.cumsum(pad_len, 0) - pad_len
     first = torch.cumsum(seg_len, 0) - seg_len
@@ -188,7 +192,8 @@ def bin_entries(
 
     gid = torch.full((e_budget,), -1, dtype=torch.int64, device=dev)
     fits = pos < e_budget
-    gid[pos[fits]] = gid_s[fits]
+    with tracing.host_read("bin_entries.mask"):
+        gid[pos[fits]] = gid_s[fits]
     return BinResult(
         gid=gid,
         tile_start=start_c.to(torch.int32),

@@ -64,6 +64,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import preprocess as pp
 from ._build import CudaKernel
 from .types import O_CONF, O_DEPTH, O_STOP, O_TRANS, OUT_ROWS, PARAM_DIM, USED_ROWS, RasterConfig
@@ -429,6 +430,7 @@ def fwd_cluster_size(cfg: RasterConfig) -> int:
     )
 
 
+@tracing.span("render.composite_fwd")
 def composite_fwd(entries, tile_start, tile_len, ntx: int, cfg: RasterConfig, tpv: int | None = None):
     """Forward composite -> (T, OUT_ROWS, P), over views of `tpv` tiles
     each (None: one view). Kernel: csrc/composite_fwd.cu (its bf16 instance
@@ -463,6 +465,7 @@ def composite_bwd(entries, tile_start, tile_len, out_fwd, gout, ntx: int, cfg: R
     return dentries
 
 
+@tracing.span("render.composite_stats")
 def composite_stats(entries, tile_start, tile_len, mask, weight_thres: float, ntx: int, cfg: RasterConfig):
     """Per-entry (importance, count), each (1, E): importance = sum over the
     tile's pixels of w * mask, count = #pixels with w * mask >= weight_thres.
@@ -491,6 +494,7 @@ class _Composite(torch.autograd.Function):
         return out
 
     @staticmethod
+    @tracing.span("render.composite_bwd")
     def backward(ctx, gout):
         entries, tile_start, tile_len, out = ctx.saved_tensors
         dentries = composite_bwd(

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core import geometry as geo
 from .types import PARAM_DIM, Camera, GaussianAttrs, RasterConfig
 
 
+@tracing.span("render.preprocess")
 def preprocess(
     attrs: GaussianAttrs,
     camera: Camera,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core.scatter import gather_rows, scatter_sum
 from . import binning
 from . import composite as cp
@@ -49,6 +50,7 @@ def image_to_tiles(img: torch.Tensor, image_shape, cfg: RasterConfig) -> torch.T
     return m.reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(nty * ntx, th * tw).contiguous()
 
 
+@tracing.span("render.bins")
 def prepare_view_bins(
     attrs: GaussianAttrs,
     camera: Camera,
@@ -106,6 +108,7 @@ def _render_output(img: torch.Tensor, background: torch.Tensor | None):
     return output, trans
 
 
+@tracing.span("render.view")
 def render_view(
     attrs: GaussianAttrs,
     camera: Camera,
@@ -135,6 +138,7 @@ def render_view(
     return output, aux
 
 
+@tracing.span("render.views")
 def render_views_batched(
     attrs_per_view: list,
     cameras: list,
@@ -234,6 +238,7 @@ def subset_view(packed: torch.Tensor, subset) -> GaussianAttrs:
     return unpack_attrs(gather_rows(packed, sel, sel_valid))
 
 
+@tracing.span("render.stats")
 def render_stats(
     attrs: GaussianAttrs,
     camera: Camera,

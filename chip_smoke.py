@@ -970,6 +970,7 @@ def mission_phase(dev):
     from activegs_torch.mapping import voxel_map as vm
     from activegs_torch.mapping.mapper import IncrementalMapper
     from activegs_torch.planning import ConfidencePlanner, PlannerConfig
+    from activegs_torch.planning import confidence as cf
     from activegs_torch.render import composite as cp
     from activegs_torch.render.types import RasterConfig
     from activegs_torch.sim.synthetic import BoxRoomSimulator
@@ -977,14 +978,24 @@ def mission_phase(dev):
     map_cfg, voxel_cfg, raster_cfg = gm.MapConfig(), vm.VoxelConfig(), RasterConfig()
     planner = ConfidencePlanner(PlannerConfig(), map_cfg, voxel_cfg, raster_cfg, seed=SEED)
     plan_launches, plan_groups = [], []
-    plan = planner.plan
+    plan, groups_of = planner.plan, cf.utility_groups
+
+    def counted_groups(*args, **kwargs):
+        groups = groups_of(*args, **kwargs)
+        plan_groups[-1] += len(groups)
+        return groups
 
     def counted_plan(*args, **kwargs):
+        # the groups that the planner's batched utilities render, as
+        # `utility_groups` returns them during the plan step
         n0 = cp.fwd_kernel.launches
-        planner.last_utility_groups = 0
-        path = plan(*args, **kwargs)
+        plan_groups.append(0)
+        cf.utility_groups = counted_groups
+        try:
+            path = plan(*args, **kwargs)
+        finally:
+            cf.utility_groups = groups_of
         plan_launches.append(cp.fwd_kernel.launches - n0)
-        plan_groups.append(planner.last_utility_groups)
         return path
 
     planner.plan = counted_plan
