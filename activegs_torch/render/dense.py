@@ -68,9 +68,11 @@ def render_dense(
     weight_thres: float = 0.03,
     background: torch.Tensor | None = None,
 ) -> dict:
-    """Oracle render: preprocess + dense composite + channel post."""
+    """Oracle render: preprocess + dense composite + channel post. The
+    preprocess is the op-by-op `preprocess_fwd_plain` under autograd on
+    any device, so the oracle stays independent of the preprocess kernels."""
     h, w = image_shape
-    params2d, radius, depth_z, in_view = pp.preprocess(attrs, camera, image_shape, cfg, front_only)
+    params2d, radius, depth_z, in_view = pp.preprocess_fwd_plain(attrs, camera, image_shape, cfg, front_only)
     order = torch.sort(torch.where(in_view, depth_z.detach(), torch.inf), stable=True).indices
     out, importance, count = composite_dense(params2d, order, image_shape, cfg, render_mask, weight_thres)
     trans = out[O_TRANS].reshape(1, h, w)

@@ -1,20 +1,31 @@
 """Per-gaussian view preprocessing: projection, EWA covariance, surfel plane
 (port of `activegs_tpu/render/preprocess.py`).
 
-Plain differentiable torch ops on flat (N,) components, in the reference's
-op order; autograd transposes it, so only the tile compositor needs a
-hand-written backward. Also holds the per-(entry, pixel) alpha/depth math
-shared by the compositor's plain versions and the dense oracle; the CUDA
-kernels (`csrc/*.cu`) repeat it line for line, with IEEE division.
+`preprocess` is one autograd function with a hand-written forward and
+backward: on the card, one launch of `csrc/preprocess.cu`'s forward kernel
+and one of its backward kernel; on the CPU, their plain PyTorch versions
+(`preprocess_fwd_plain`, the reference's op order on flat (N,) components,
+and `preprocess_bwd_plain`, the chain rule written out in the backward
+kernel's order). The choice depends only on the device. The forward kernel
+repeats `_project` op for op with no contraction, so its outputs are
+bitwise those of `preprocess_fwd_plain` on the card; the gradients are
+autograd's through it, within rounding. Also holds the per-(entry, pixel)
+alpha/depth math shared by the compositor's plain versions and the dense
+oracle; the CUDA kernels (`csrc/*.cu`) repeat it line for line, with IEEE
+division.
 """
 
 from __future__ import annotations
+
+import ctypes
+import types
 
 import torch
 
 from .. import tracing
 from ..core import geometry as geo
-from .types import PARAM_DIM, Camera, GaussianAttrs, RasterConfig
+from ._build import CudaKernel
+from .types import PARAM_DIM, USED_ROWS, Camera, GaussianAttrs, RasterConfig
 
 
 @tracing.span("render.preprocess")
@@ -29,7 +40,57 @@ def preprocess(
 
     Returns params2d (N, PARAM_DIM) float32 entry parameters (zero rows for
     gaussians out of view), radius (N,) screen bbox radius in pixels,
-    depth_z (N,) camera z, in_view (N,) bool."""
+    depth_z (N,) camera z, in_view (N,) bool. params2d and depth_z are
+    differentiable in the means, scales, rotations, opacities, colors and
+    confidences (not in the camera); radius and in_view are not."""
+    return _Preprocess.apply(
+        attrs.means, attrs.scales, attrs.rotations, attrs.opacities, attrs.colors, attrs.confidences,
+        attrs.valid, camera.extrinsic, camera.intrinsic, tuple(image_shape), cfg, front_only,
+    )
+
+
+# the leaves that take gradients, in `_Preprocess`'s argument order
+GRAD_FIELDS = ("means", "scales", "rotations", "opacities", "colors", "confidences")
+
+
+class _Preprocess(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, means, scales, rotations, opacities, colors, confidences, valid, extrinsic, intrinsic,
+                image_shape, cfg, front_only):
+        attrs = GaussianAttrs(means, scales, rotations, opacities, colors, confidences, valid)
+        camera = Camera(extrinsic, intrinsic)
+        if means.device.type == "cpu":
+            out = preprocess_fwd_plain(attrs, camera, image_shape, cfg, front_only)
+        else:
+            out = preprocess_kernel(attrs, camera, image_shape, cfg, front_only)
+        ctx.save_for_backward(means, scales, rotations, opacities, colors, confidences, valid, extrinsic, intrinsic)
+        ctx.image_shape, ctx.cfg, ctx.front_only = image_shape, cfg, front_only
+        ctx.mark_non_differentiable(out[1], out[3])
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_params2d, _d_radius, d_depth_z, _d_in_view):
+        need = ctx.needs_input_grad[: len(GRAD_FIELDS)]
+        grads = (None,) * len(GRAD_FIELDS)
+        if any(need) and (d_params2d is not None or d_depth_z is not None):
+            *fields, extrinsic, intrinsic = ctx.saved_tensors
+            attrs, camera = GaussianAttrs(*fields), Camera(extrinsic, intrinsic)
+            bwd = preprocess_bwd_plain if extrinsic.device.type == "cpu" else preprocess_bwd_kernel
+            grads = bwd(attrs, camera, ctx.image_shape, ctx.cfg, ctx.front_only, d_params2d, d_depth_z, need)
+        return (*grads, None, None, None, None, None, None)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions
+# --------------------------------------------------------------------------
+
+
+def _project(attrs: GaussianAttrs, camera: Camera, image_shape: tuple[int, int], cfg: RasterConfig,
+             front_only: bool) -> types.SimpleNamespace:
+    """Every intermediate of the projection, by name: the view's constants
+    (0-d tensors) and the (N,) components, in the reference's op order,
+    which the kernels repeat. The screen extents carry no gradient."""
     h, w = image_shape
     k = camera.intrinsic
     fx = k[0, 0] * w
@@ -54,8 +115,10 @@ def preprocess(
     zs = torch.where(in_front, pz, 1.0)
     inv_z = 1.0 / zs
 
-    mean_x = fx * px * inv_z + cx
-    mean_y = fy * py * inv_z + cy
+    fpx = fx * px
+    fpy = fy * py
+    mean_x = fpx * inv_z + cx
+    mean_y = fpy * inv_z + cy
 
     qw = attrs.rotations[:, 0]
     qx = attrs.rotations[:, 1]
@@ -86,13 +149,21 @@ def preprocess(
     # frustum-clamped Jacobian point
     lim_x = cfg.tan_clamp * (0.5 * w / fx)
     lim_y = cfg.tan_clamp * (0.5 * h / fy)
-    tx = torch.clamp(px * inv_z, -lim_x, lim_x) * zs
-    ty = torch.clamp(py * inv_z, -lim_y, lim_y) * zs
+    vx = px * inv_z
+    vy = py * inv_z
+    clx = torch.clamp(vx, -lim_x, lim_x)
+    cly = torch.clamp(vy, -lim_y, lim_y)
+    tx = clx * zs
+    ty = cly * zs
 
     j00 = fx * inv_z
-    j02 = -fx * tx * inv_z * inv_z
+    u1x = -fx * tx
+    u2x = u1x * inv_z
+    j02 = u2x * inv_z
     j11 = fy * inv_z
-    j12 = -fy * ty * inv_z * inv_z
+    u1y = -fy * ty
+    u2y = u1y * inv_z
+    j12 = u2y * inv_z
     a0 = j00 * r00 + j02 * r20
     a1 = j00 * r01 + j02 * r21
     a2 = j00 * r02 + j02 * r22
@@ -148,17 +219,247 @@ def preprocess(
     )
     if front_only:
         in_view = in_view & (plane_dot < 0)
+    return types.SimpleNamespace(**locals())
 
-    zero = torch.zeros_like(mean_x)
+
+def preprocess_fwd_plain(
+    attrs: GaussianAttrs,
+    camera: Camera,
+    image_shape: tuple[int, int],
+    cfg: RasterConfig,
+    front_only: bool = False,
+):
+    """`preprocess` as plain torch ops, differentiable by autograd: the
+    kernel's version on the CPU, and the dense oracle's on any device."""
+    t = _project(attrs, camera, image_shape, cfg, front_only)
+    zero = torch.zeros_like(t.mean_x)
     rows = [
-        mean_x, mean_y, conic_a, conic_b, conic_c, attrs.opacities,
+        t.mean_x, t.mean_y, t.conic_a, t.conic_b, t.conic_c, attrs.opacities,
         attrs.colors[:, 0], attrs.colors[:, 1], attrs.colors[:, 2],
-        ncx, ncy, ncz, pa, pb, pc, pd, attrs.confidences, pz, ext_x, ext_y,
+        t.ncx, t.ncy, t.ncz, t.pa, t.pb, t.pc, t.pd, attrs.confidences, t.pz, t.ext_x, t.ext_y,
     ]
     rows += [zero] * (PARAM_DIM - len(rows))
     params2d = torch.stack(rows, dim=1).to(torch.float32)
-    params2d = torch.where(in_view[:, None], params2d, 0.0)
-    return params2d, torch.where(in_view, radius, 0.0), pz, in_view
+    params2d = torch.where(t.in_view[:, None], params2d, 0.0)
+    return params2d, torch.where(t.in_view, t.radius, 0.0), t.pz, t.in_view
+
+
+@torch.no_grad()
+def preprocess_bwd_plain(
+    attrs: GaussianAttrs,
+    camera: Camera,
+    image_shape: tuple[int, int],
+    cfg: RasterConfig,
+    front_only: bool,
+    d_params2d: torch.Tensor | None,
+    d_depth_z: torch.Tensor | None,
+    need=(True,) * 6,
+):
+    """The backward kernel's algorithm in plain torch ops: the gradients of
+    the GRAD_FIELDS leaves (None where `need` says not) from the cotangents
+    of params2d (rows 0..17, masked to the in-view gaussians; ext_x, ext_y
+    and the pad carry none) and depth_z, either of them None for zero.
+    Autograd's conventions: zs = where(in_front, pz, 1); the tan clamps
+    pass gradient where lo <= x <= hi, clamp(det, 1e-12) where det >=
+    1e-12. Each line is one of the backward kernel's
+    (`csrc/preprocess.cu::preprocess_bwd_kernel`), in its order."""
+    t = _project(attrs, camera, image_shape, cfg, front_only)
+    r = [[t.r00, t.r01, t.r02], [t.r10, t.r11, t.r12], [t.r20, t.r21, t.r22]]
+    R = [[t.R00, t.R01, t.R02], [t.R10, t.R11, t.R12], [t.R20, t.R21, t.R22]]
+    a, b, s = [t.a0, t.a1, t.a2], [t.b0, t.b1, t.b2], [t.s0, t.s1, t.s2]
+    ca, cb = [t.ca0, t.ca1, t.ca2], [t.cb0, t.cb1, t.cb2]
+    nc = [t.ncx, t.ncy, t.ncz]
+    fx, fy, cx, cy = t.fx, t.fy, t.cx, t.cy
+    zero = torch.zeros_like(t.pz)
+    if d_params2d is None:
+        g = [zero] * USED_ROWS
+    else:
+        g = list(torch.where(t.in_view[:, None], d_params2d[:, :USED_ROWS], 0.0).unbind(1))
+    g_pz = g[17] if d_depth_z is None else g[17] + d_depth_z
+
+    # surfel plane: pc = (ncz - pa cx) - pb cy, pa = ncx / fx, pb = ncy / fy
+    g_pc = g[14]
+    g_pa = g[12] + (-g_pc) * cx
+    g_pb = g[13] + (-g_pc) * cy
+    g_pd = g[15]
+    g_ncx = (g[9] + g_pa / fx) + g_pd * t.px
+    g_ncy = (g[10] + g_pb / fy) + g_pd * t.py
+    g_ncz = (g[11] + g_pc) + g_pd * t.pz
+    g_px = g_pd * nc[0]
+    g_py = g_pd * nc[1]
+    g_pz = g_pz + g_pd * nc[2]
+    gR = [[zero, zero, g_ncx * r[0][k] + g_ncy * r[1][k] + g_ncz * r[2][k]] for k in range(3)]
+
+    # conic = (cov_c, -cov_b, cov_a) / clamp(det, 1e-12)
+    g_inv_det = (g[2] * t.cov_c - g[3] * t.cov_b) + g[4] * t.cov_a
+    g_cov_a = g[4] * t.inv_det
+    g_cov_b = -(g[3] * t.inv_det)
+    g_cov_c = g[2] * t.inv_det
+    g_det = torch.where(t.det >= 1e-12, -(g_inv_det * (t.inv_det * t.inv_det)), 0.0)
+    g_cov_a = g_cov_a + g_det * t.cov_c
+    g_cov_c = g_cov_c + g_det * t.cov_a
+    g_cov_b = g_cov_b - 2.0 * (g_det * t.cov_b)
+
+    # cov2d: cov_a = ca . a, cov_b = ca . b, cov_c = cb . b; ca = C a, cb = C b
+    g_ca = [g_cov_a * a[k] + g_cov_b * b[k] for k in range(3)]
+    g_cb = [g_cov_c * b[k] for k in range(3)]
+    g_a = [g_cov_a * ca[k] for k in range(3)]
+    g_b = [g_cov_b * ca[k] + g_cov_c * cb[k] for k in range(3)]
+    C = [[t.c00, t.c01, t.c02], [t.c01, t.c11, t.c12], [t.c02, t.c12, t.c22]]
+    for k in range(3):
+        g_a[k] = g_a[k] + (g_ca[0] * C[0][k] + g_ca[1] * C[1][k] + g_ca[2] * C[2][k])
+        g_b[k] = g_b[k] + (g_cb[0] * C[0][k] + g_cb[1] * C[1][k] + g_cb[2] * C[2][k])
+    g_c = [
+        g_ca[x] * a[x] + g_cb[x] * b[x] if x == y
+        else (g_ca[x] * a[y] + g_ca[y] * a[x]) + (g_cb[x] * b[y] + g_cb[y] * b[x])
+        for x, y in _COV_PAIRS
+    ]
+
+    # T = J W: a_k = j00 r0k + j02 r2k, b_k = j11 r1k + j12 r2k
+    g_j00 = g_a[0] * r[0][0] + g_a[1] * r[0][1] + g_a[2] * r[0][2]
+    g_j02 = g_a[0] * r[2][0] + g_a[1] * r[2][1] + g_a[2] * r[2][2]
+    g_j11 = g_b[0] * r[1][0] + g_b[1] * r[1][1] + g_b[2] * r[1][2]
+    g_j12 = g_b[0] * r[2][0] + g_b[1] * r[2][1] + g_b[2] * r[2][2]
+    # J: j00 = fx inv_z, j02 = ((-fx tx) inv_z) inv_z
+    g_u2x = g_j02 * t.inv_z
+    g_u1x = g_u2x * t.inv_z
+    g_tx = g_u1x * -fx
+    g_u2y = g_j12 * t.inv_z
+    g_u1y = g_u2y * t.inv_z
+    g_ty = g_u1y * -fy
+    g_inv_z = ((g_j00 * fx + g_j02 * t.u2x) + g_u2x * t.u1x) + ((g_j11 * fy + g_j12 * t.u2y) + g_u2y * t.u1y)
+    # tx = clamp(px inv_z, -lim_x, lim_x) zs: gradient where lo <= x <= hi
+    g_zs = g_tx * t.clx + g_ty * t.cly
+    g_vx = torch.where((t.vx >= -t.lim_x) & (t.vx <= t.lim_x), g_tx * t.zs, 0.0)
+    g_vy = torch.where((t.vy >= -t.lim_y) & (t.vy <= t.lim_y), g_ty * t.zs, 0.0)
+    g_px = g_px + g_vx * t.inv_z
+    g_py = g_py + g_vy * t.inv_z
+    g_inv_z = g_inv_z + (g_vx * t.px + g_vy * t.py)
+    # mean = (f p) inv_z + c
+    g_fpx = g[0] * t.inv_z
+    g_fpy = g[1] * t.inv_z
+    g_px = g_px + g_fpx * fx
+    g_py = g_py + g_fpy * fy
+    g_inv_z = g_inv_z + (g[0] * t.fpx + g[1] * t.fpy)
+    # inv_z = 1 / zs, zs = where(in_front, pz, 1)
+    g_zs = g_zs - g_inv_z * (t.inv_z * t.inv_z)
+    g_pz = g_pz + torch.where(t.in_front, g_zs, 0.0)
+    g_means = torch.stack([g_px * r[0][j] + g_py * r[1][j] + g_pz * r[2][j] for j in range(3)], dim=1)
+
+    # cov3d: c_xy = sum_k (s_k R_xk) R_yk
+    g_s = [zero, zero, zero]
+    for p, (x, y) in enumerate(_COV_PAIRS):
+        for k in range(3):
+            gw = g_c[p] * R[y][k]
+            gR[y][k] = gR[y][k] + g_c[p] * (s[k] * R[x][k])
+            g_s[k] = g_s[k] + gw * R[x][k]
+            gR[x][k] = gR[x][k] + gw * s[k]
+    sc = attrs.scales
+    g_scales = torch.stack([g_s[k] * (2.0 * sc[:, k]) for k in range(3)], dim=1)
+
+    # R(q): diagonal R_kk = 1 - 2 (..), off-diagonal 2 (..)
+    qw, qx, qy, qz = attrs.rotations.unbind(1)
+    e00, e11, e22 = -2.0 * gR[0][0], -2.0 * gR[1][1], -2.0 * gR[2][2]
+    h01, h02, h10 = 2.0 * gR[0][1], 2.0 * gR[0][2], 2.0 * gR[1][0]
+    h12, h20, h21 = 2.0 * gR[1][2], 2.0 * gR[2][0], 2.0 * gR[2][1]
+    g_rot = torch.stack([
+        (h02 * qy + h10 * qz + h21 * qx) - (h01 * qz + h12 * qx + h20 * qy),
+        (2.0 * (e11 * qx) + 2.0 * (e22 * qx)) + (h01 * qy + h02 * qz + h10 * qy + h20 * qz + h21 * qw) - h12 * qw,
+        (2.0 * (e00 * qy) + 2.0 * (e22 * qy)) + (h01 * qx + h02 * qw + h10 * qx + h12 * qz + h21 * qz) - h20 * qw,
+        (2.0 * (e00 * qz) + 2.0 * (e11 * qz)) + (h02 * qx + h10 * qw + h12 * qy + h20 * qx + h21 * qy) - h01 * qw,
+    ], dim=1)
+    grads = (g_means, g_scales, g_rot, g[5], torch.stack(g[6:9], dim=1), g[16])
+    return tuple(x if want else None for x, want in zip(grads, need))
+
+
+# the six unique entries of cov3d as (x, y) of R's rows, in the order the
+# backward visits them
+_COV_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# shared head: the seven fields, their row strides (a host array), the
+# extrinsic and intrinsic, N, h, w, near, tan_clamp, lowpass, sigma_extent,
+# front_only
+_HEAD = [_P] * 7 + [ctypes.POINTER(_LL), _P, _P, _LL, _I, _I, _F, _F, _F, _F, _I]
+fwd_kernel = CudaKernel("preprocess", _HEAD + [_P, _P, _P, _P, _P], name="preprocess_fwd")
+bwd_kernel = CudaKernel("preprocess", _HEAD + [_P] * 9, name="preprocess_bwd")
+KERNELS = (fwd_kernel, bwd_kernel)
+_WIDTHS = (3, 3, 4, 1, 3, 1)  # of the GRAD_FIELDS
+
+
+def _kernel_head(attrs: GaussianAttrs, camera: Camera, image_shape, cfg: RasterConfig, front_only: bool):
+    """(the head of both kernels' arguments, the tensors and host array it
+    points into, which the caller keeps until the launch returns),
+    after checking what the kernels take: float32 fields of N rows on one
+    CUDA device, a bool `valid`, a (4, 4) extrinsic and a (3, 3)
+    intrinsic. A field whose rows are not unit-stride inside is made
+    contiguous; rows may lie any stride apart (views of a packed array)."""
+    n = attrs.means.shape[0]
+    dev = attrs.means.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {dev}")
+    fields = []
+    for name, width in zip(GRAD_FIELDS, _WIDTHS):
+        x = getattr(attrs, name)
+        shape = (n, width) if width > 1 else (n,)
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name} must be float32 {shape} on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        fields.append(x.contiguous() if width > 1 and x.stride(1) != 1 else x)
+    valid = attrs.valid
+    if valid.dtype != torch.bool or tuple(valid.shape) != (n,) or valid.device != dev:
+        raise ValueError(f"valid must be bool ({n},) on {dev}, got {valid.dtype} {tuple(valid.shape)}")
+    cams = []
+    for name, x, shape in (("extrinsic", camera.extrinsic, (4, 4)), ("intrinsic", camera.intrinsic, (3, 3))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name} must be float32 {shape} on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        cams.append(x.contiguous())
+    strides = (_LL * 7)(*(x.stride(0) for x in (*fields, valid)))
+    h, w = image_shape
+    keep = (*fields, valid, *cams, strides)
+    head = [*(x.data_ptr() for x in (*fields, valid)), strides, *(x.data_ptr() for x in cams), n, h, w,
+            cfg.near, cfg.tan_clamp, cfg.lowpass, cfg.sigma_extent, int(front_only)]
+    return head, keep
+
+
+@tracing.span("render.preprocess_kernel")
+def preprocess_kernel(attrs: GaussianAttrs, camera: Camera, image_shape, cfg: RasterConfig, front_only: bool = False):
+    """`preprocess_fwd_plain`'s outputs, bitwise, from one launch of
+    csrc/preprocess.cu's forward kernel (no autograd)."""
+    head, _keep = _kernel_head(attrs, camera, image_shape, cfg, front_only)
+    n, dev = attrs.means.shape[0], attrs.means.device
+    params2d = torch.empty((n, PARAM_DIM), dtype=torch.float32, device=dev)
+    radius = torch.empty(n, dtype=torch.float32, device=dev)
+    depth_z = torch.empty(n, dtype=torch.float32, device=dev)
+    in_view = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        fwd_kernel.launch(*head, params2d.data_ptr(), radius.data_ptr(), depth_z.data_ptr(), in_view.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    return params2d, radius, depth_z, in_view
+
+
+@tracing.span("render.preprocess_bwd")
+def preprocess_bwd_kernel(attrs: GaussianAttrs, camera: Camera, image_shape, cfg: RasterConfig, front_only: bool,
+                          d_params2d, d_depth_z, need=(True,) * 6):
+    """`preprocess_bwd_plain`'s gradients from one launch of
+    csrc/preprocess.cu's backward kernel."""
+    head, _keep = _kernel_head(attrs, camera, image_shape, cfg, front_only)
+    n, dev = attrs.means.shape[0], attrs.means.device
+    cots = []
+    for name, x, shape in (("d_params2d", d_params2d, (n, PARAM_DIM)), ("d_depth_z", d_depth_z, (n,))):
+        if x is not None and (x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != dev):
+            raise ValueError(f"{name} must be float32 {shape} on {dev}, got {x.dtype} {tuple(x.shape)}")
+        cots.append(None if x is None else x.contiguous())
+    grads = [torch.empty_like(getattr(attrs, f), memory_format=torch.contiguous_format) if want else None
+             for f, want in zip(GRAD_FIELDS, need)]
+    if n:
+        bwd_kernel.launch(*head, *(0 if x is None else x.data_ptr() for x in (*cots, *grads)),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    return tuple(grads)
 
 
 # exp(power) is floored at exp(-80) < 1e-34: alpha there is far below any

@@ -1,9 +1,10 @@
 """Shared datatypes for the surfel rasterizer (port of
 `activegs_tpu/render/types.py`).
 
-The pipeline per view: preprocess (differentiable torch ops) -> binning
-(sorts into K-aligned, depth-ordered per-tile entry segments) -> tile
-composite (hand-written CUDA kernels on the card, plain torch on the CPU).
+The pipeline per view: preprocess -> binning (sorts into K-aligned,
+depth-ordered per-tile entry segments) -> tile composite; preprocess and
+the compositor are hand-written CUDA kernels with hand-written backwards
+on the card, and plain torch on the CPU.
 """
 
 from __future__ import annotations

@@ -69,6 +69,7 @@ from ..mapping.mapper import _sync
 from ..planning.paths import rotation_from_z
 from ..render import binning
 from ..render import composite as cp
+from ..render import preprocess as pp
 from ..render.renderer import _view_entries
 from ..render.types import O_STOP, O_TRANS, Camera, RasterConfig
 
@@ -299,7 +300,7 @@ def _scaling_rank(rank: int, n: int, port: int, res: int, n_gauss: int, steps: i
             t0 = time.perf_counter()
             step((batch[0] + 1e-6 * (i + 1), *batch[1:]))
             times.append(time.perf_counter() - t0)
-        launches = {k.name: k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)}
+        launches = {k.name: k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS)}
         if rank == 0:
             loss1, _ = trainer.batch_loss(params, state, batch, counts, cfg, rcfg)
             want = torch.autograd.grad(loss1, [params[k] for k in trainer.PARAM_FIELDS])

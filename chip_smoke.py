@@ -4,7 +4,8 @@
 
 Builds the hand-written kernels of the port (the three tile-compositor
 kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
-instance exported by the same source, and the two elementwise-rate probes
+instance exported by the same source, the preprocess kernels beside them,
+and the two elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
 together), then drives eight paths, each with the launch counters zeroed
 just before it and read just after:
@@ -111,7 +112,12 @@ just before it and read just after:
    kernels against the plain versions (as path 1's step), and the opaque
    scene's `term_stats`; `bench_mission.main` for P7_MISSION_STEPS steps
    with no prewarm (its JSON line), recorded into the git-ignored
-   `build/path7/`; `validate_truncation.main` on that mission's final map
+   `build/path7/`; the two preprocess kernels (`render/csrc/preprocess.cu`)
+   at the bench scene's subset bucket, each held against its plain
+   version (forward bitwise, backward bitwise and within 1e-5 of
+   autograd) and timed beside it, and a forward and backward through them
+   against the plain path under autograd, with each one's device busy
+   time and device operations; `validate_truncation.main` on that mission's final map
    and its 8 cameras at 512 x 512 and 1024 x 1024 (the reference config
    must drop no more entries than production on any view); and a sweep
    smoke, `run_sweep.main` on tworoom with the confidence planner, one
@@ -136,7 +142,10 @@ just before it and read just after:
 After the bf16 phase the stats kernel's two instances are timed in turns
 on both stats views, by CUDA events and by device time (`stats in turns,
 ...`). Every phase's seconds are printed (`phase seconds: ...`), and each
-kernel's `launches_by_path` adds path 7's parts.
+kernel's `launches_by_path` adds the parts of paths 6-8. The preprocess
+kernels are counted on every path: each path that renders must launch
+the forward one, each that trains the backward one too, and each that
+does not, never.
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -233,6 +242,9 @@ REPLACES = {
     "composite_fwd_bf16": "activegs_tpu/render/composite_pallas.py:179",
     "composite_bwd_bf16": "activegs_tpu/render/composite_pallas.py:297",
     "composite_stats_bf16": "activegs_tpu/render/composite_pallas.py:522",
+    # no Pallas kernel: the reference leaves its preprocess to XLA's fusion
+    "preprocess_fwd": "none (activegs_tpu/render/preprocess.py:23, fused by XLA)",
+    "preprocess_bwd": "none (its transpose by XLA)",
     "microbench_vpu": "scripts/microbench_vpu.py:37",
     "microbench_bf16": "scripts/microbench_bf16.py:30",
 }
@@ -252,6 +264,33 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def _kernels() -> tuple:
+    """The renderer's kernels: the compositor's f32 and bf16 instances and
+    the two preprocess kernels, which every path that renders launches."""
+    from activegs_torch.render import composite as cp
+    from activegs_torch.render import preprocess as pp
+
+    return (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS)
+
+
+def _launches() -> dict:
+    return {k.name: k.launches for k in _kernels()}
+
+
+def _zero_launches() -> None:
+    for k in _kernels():
+        k.launches = 0
+
+
+def check_preprocess(path: str, launches: dict, trains: bool) -> None:
+    """A path that renders launches the preprocess forward kernel; one that
+    trains launches its backward too (at most once a forward), and one
+    that does not, never."""
+    fwd, bwd = launches["preprocess_fwd"], launches["preprocess_bwd"]
+    check(fwd >= bwd > 0 if trains else fwd > 0 and bwd == 0,
+          f"{path}: preprocess kernel launches fwd {fwd} bwd {bwd}")
 
 
 def smi() -> str:
@@ -305,8 +344,7 @@ def main_path(dev):
     buf = kf.init_buffer(256, RES, RES, device=dev)
     gen = torch.Generator().manual_seed(SEED)
     counts = []
-    for k in cp.KERNELS:
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     for i, f in enumerate(frames):
         state, buf, st = mapping_step(state, buf, f, cfg, rcfg, gen)
@@ -320,10 +358,11 @@ def main_path(dev):
         check(math.isfinite(st["loss"]), f"keyframe {i + 1}: loss {st['loss']}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.source: k.launches for k in cp.KERNELS}
+    launches = _launches()
     print(f"main path: {KEYFRAMES} keyframes in {wall:.2f} s, launches {launches}")
     check(all(b > a for a, b in zip(counts[:-2], counts[1:-1])), f"gaussian count did not grow: {counts}")
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched on the main path: {launches}")
+    check(all(launches[k.name] > 0 for k in cp.KERNELS), f"a kernel was not launched on the main path: {launches}")
+    check_preprocess("main path", launches, trains=True)
     psnr_after = render_psnr(state, frames[0])
     print(f"keyframe-1 pose PSNR: spawn only {psnr_before:.3f} dB, after the run {psnr_after:.3f} dB")
     check(psnr_after > psnr_before, "training did not raise PSNR at keyframe 1's pose")
@@ -1004,8 +1043,7 @@ def mission_phase(dev):
     mapper.load_planner(planner)
     mapper.load_recorder(MissionRecorder("build/mission", budget=1e9, record_interval=1e9))
     mapper.init_map()
-    for k in cp.KERNELS:
-        k.launches = 0
+    _zero_launches()
     explored, positions, n_cands, t0 = [], [], [], time.perf_counter()
     for i in range(MISSION_STEPS):
         st = mapper.step()
@@ -1025,14 +1063,15 @@ def mission_phase(dev):
               f"mission step {i + 1}: {plan_launches[-1]} fwd launches in planning for {n_cand} candidates in "
               f"{plan_groups[-1]} groups")
     torch.cuda.synchronize()
-    launches = {k.source: k.launches for k in cp.KERNELS}
+    launches = _launches()
     print(f"mission: {MISSION_STEPS} steps in {time.perf_counter() - t0:.2f} s, launches {launches}, "
           f"recorder {mapper.recorder.log()}")
     check(explored[-1] > explored[0], f"exploration did not rise: {explored}")
     check(len(set(positions[1:])) > 1, f"the robot did not move: {positions}")
     check(all(n > 0 for n in plan_launches[1:]), f"planning launched no fwd kernel: {plan_launches}")
     check(all(g < n for g, n in zip(plan_groups[1:], n_cands[1:])), f"planning launched per candidate: {plan_groups}")
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched on the mission path: {launches}")
+    check(all(launches[k.name] > 0 for k in cp.KERNELS), f"a kernel was not launched on the mission path: {launches}")
+    check_preprocess("mission", launches, trains=True)
     return launches, mapper
 
 
@@ -1700,7 +1739,6 @@ def cli_mission_phase() -> dict:
     from activegs_torch.mapping.mapper import IncrementalMapper
     from activegs_torch.render import composite as cp
 
-    kernels = (*cp.KERNELS, *cp.BF16_KERNELS)
     step, new_frame = IncrementalMapper.step, IncrementalMapper.get_new_dataframe
     explored, losses, plan_fwd = [], [], []
 
@@ -1720,14 +1758,13 @@ def cli_mission_phase() -> dict:
         return out
 
     argv = ["mapper.raster.bf16_pairs=true", f"max_steps={CLI_STEPS}", *OFFLINE_EXP]
-    for k in kernels:
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     with mock.patch.object(IncrementalMapper, "step", counted_step), \
             mock.patch.object(IncrementalMapper, "get_new_dataframe", counted_frame):
         mapper = app.main(argv)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = _launches()
     print(f"cli mission (python -m activegs_torch.apps.main {' '.join(argv)}): {len(losses)} steps in "
           f"{time.perf_counter() - t0:.2f} s on {mapper.device}, bf16_pairs {mapper.raster_cfg.bf16_pairs}, "
           f"{mapper.simulator.resolution[0]}x{mapper.simulator.resolution[1]}, capacity {mapper.map_cfg.capacity}, "
@@ -1740,6 +1777,7 @@ def cli_mission_phase() -> dict:
           f"{launches}")
     check(all(launches[k.name] == 0 for k in cp.KERNELS), f"cli mission: an f32 instance ran under bf16_pairs: "
           f"{launches}")
+    check_preprocess("cli mission", launches, trains=True)
     return launches
 
 
@@ -1811,10 +1849,8 @@ def offline_eval_phase(dev, tops: dict) -> tuple[dict, dict, dict]:
     from activegs_torch.render.types import O_DEPTH, O_STOP, O_TRANS, RasterConfig
     from activegs_torch.sim import ReplaySimulator, get_simulator
 
-    kernels = (*cp.KERNELS, *cp.BF16_KERNELS)
     rec = {}
-    for k in kernels:
-        k.launches = 0
+    _zero_launches()
     t_path = time.perf_counter()
 
     # test views
@@ -1935,7 +1971,7 @@ def offline_eval_phase(dev, tops: dict) -> tuple[dict, dict, dict]:
         result = eval_app.main(eval_argv)
         rec["eval_app_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = _launches()
     rec["path_s"] = time.perf_counter() - t_path
     n_maps = len(result["step"])
     # a scoring's time: from one score_view's return to the next (the next
@@ -1957,8 +1993,9 @@ def offline_eval_phase(dev, tops: dict) -> tuple[dict, dict, dict]:
     check(finite and len(result["mean_psnr"]) == n_maps, f"eval_app: a score is not finite: {result}")
     check(result["mean_lpips"] == [None] * n_maps, f"eval_app: mean_lpips {result['mean_lpips']} without weights")
     check(launches["composite_fwd"] > 0, f"offline eval: the fwd kernel was not launched: {launches}")
-    check(all(n == 0 for k, n in launches.items() if k != "composite_fwd"),
-          f"offline eval launched another kernel than fwd: {launches}")
+    check(all(n == 0 for k, n in launches.items() if k not in ("composite_fwd", "preprocess_fwd")),
+          f"offline eval launched another kernel than the forward ones: {launches}")
+    check_preprocess("offline eval", launches, trains=False)
     print(f"offline eval path: {rec['path_s']:.2f} s; launches {launches}")
 
     # outside the counted run: the fwd kernel against its plain version on
@@ -2155,8 +2192,7 @@ def resample_phase(dev, psnr_frozen: float) -> dict:
         losses.append(out[0].detach())
         return out
 
-    for k in (*cp.KERNELS, *cp.BF16_KERNELS):
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     with mock.patch.object(trainer, "train_keyframe", counted_train), \
             mock.patch.object(trainer, "draw_batch", counted_draw), mock.patch.object(trainer, "batch_loss", counted_loss):
@@ -2175,9 +2211,10 @@ def resample_phase(dev, psnr_frozen: float) -> dict:
                   f"{rec['losses']}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)}
+    launches = _launches()
     print(f"resampled path: {KEYFRAMES} keyframes in {wall:.2f} s, launches {launches}")
     check(all(launches[k.name] > 0 for k in cp.KERNELS), f"resampled path: a kernel was not launched: {launches}")
+    check_preprocess("resampled path", launches, trains=True)
 
     # one resampled step, kernel path against plain path
     sub = gm.slice_state(state, gm.bucket_capacity(state.count, cfg.capacity))
@@ -2259,7 +2296,6 @@ def sharded_rank(rank: int, port: int) -> None:
     from activegs_torch.parallel import sharded
     from activegs_torch.planning import ConfidencePlanner, PlannerConfig
     from activegs_torch.planning import confidence as cf
-    from activegs_torch.render import composite as cp
     from activegs_torch.render.types import RasterConfig
     from activegs_torch.sim.synthetic import BoxRoomSimulator
 
@@ -2268,8 +2304,7 @@ def sharded_rank(rank: int, port: int) -> None:
     group = sharded.make_view_group()
     rec = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
 
-    def launches():
-        return {k.name: k.launches for k in cp.KERNELS}
+    launches = _launches
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2395,6 +2430,7 @@ def sharded_phase(card: str) -> dict:
         check(mi["explored"][-1] > mi["explored"][0], f"rank {r['rank']}: exploration did not rise {mi['explored']}")
         check(all(mi["launches"][k.name] > 0 for k in cp.KERNELS), f"rank {r['rank']}: a kernel was not launched "
               f"in the sharded mission: {mi['launches']}")
+        check_preprocess(f"rank {r['rank']}'s sharded mission", mi["launches"], trains=True)
     check(len({r["step"]["loss"] for r in recs}) == 1, "the ranks disagree on the step's loss")
 
     # one rank over NCCL: bitwise the single-process step
@@ -2407,7 +2443,7 @@ def sharded_phase(card: str) -> dict:
     p = leaves()
     loss1, pf1 = trainer.batch_loss(p, state, batch, counts, cfg, rcfg, bins, subsets)
     g1 = torch.autograd.grad(loss1, list(p.values()))
-    n0 = {k.name: k.launches for k in cp.KERNELS}
+    n0 = _launches()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         torch.cuda.synchronize()
@@ -2418,14 +2454,14 @@ def sharded_phase(card: str) -> dict:
         nccl_ms = (time.perf_counter() - t) * 1e3
     finally:
         dist.destroy_process_group()
-    nccl_launches = {k.name: k.launches - n0[k.name] for k in cp.KERNELS}
+    nccl_launches = {k: v - n0[k] for k, v in _launches().items()}
     bitwise = torch.equal(loss, loss1.detach()) and torch.equal(pf, pf1) and all(
         torch.equal(grads[k], g) for k, g in zip(trainer.PARAM_FIELDS, g1))
     print(f"sharded step over one NCCL rank ({len(counts)} views, {nccl_ms:.1f} ms, launches {nccl_launches}): "
           f"bitwise the single-process step: {bitwise}")
     check(bitwise, "one NCCL rank's step is not bitwise the single-process step")
-    total = {k.name: sum(r[part]["launches"][k.name] for r in recs for part in ("step", "utility", "mission"))
-             for k in cp.KERNELS}
+    total = {k: sum(r[part]["launches"][k] for r in recs for part in ("step", "utility", "mission"))
+             for k in nccl_launches}
     return {"ranks": recs, "wall_s": wall, "nccl_ms": nccl_ms, "nccl_bitwise": bitwise,
             "launches": {k: total[k] + nccl_launches[k] for k in total}}
 
@@ -2455,9 +2491,8 @@ def viewer_phase(dev) -> dict:
     from activegs_torch.viz import viewer as tview
     from activegs_torch.viz.webviewer import WebViewer
 
-    kernels = (*cp.KERNELS, *cp.BF16_KERNELS)
-    counts = lambda: {k.name: k.launches for k in kernels}  # noqa: E731
-    viewer_launches = {k.name: 0 for k in kernels}
+    counts = _launches
+    viewer_launches = dict.fromkeys(counts(), 0)
 
     def counted(fn):
         def run(*a, **k):
@@ -2468,8 +2503,7 @@ def viewer_phase(dev) -> dict:
             return out
         return run
 
-    for k in kernels:
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     with mock.patch.object(tview.MissionViewer, "on_step", counted(tview.MissionViewer.on_step)), \
             mock.patch.object(WebViewer, "on_step", counted(WebViewer.on_step)):
@@ -2526,8 +2560,10 @@ def viewer_phase(dev) -> dict:
           f"{stats['frame_id']}, loss {stats['loss']:.5f}); launches by the viewers {viewer_launches}, by the whole "
           f"path {launches} ({wall:.2f} s)")
     check(viewer_launches["composite_fwd"] > 0 and all(v == 0 for k, v in viewer_launches.items()
-                                                       if k != "composite_fwd"),
-          f"the viewers launched other kernels than the forward one: {viewer_launches}")
+                                                       if k not in ("composite_fwd", "preprocess_fwd")),
+          f"the viewers launched other kernels than the forward ones: {viewer_launches}")
+    check_preprocess("viewers", viewer_launches, trains=False)
+    check_preprocess("viewer path", launches, trains=True)
 
     # one 512x512 panel, the kernel against the plain version
     state, cfg = checkpoint.load_gaussian_map(maps[0], device=dev)
@@ -2608,19 +2644,6 @@ P7_SWEEP = ["experiment.output_dir=build/path7/experiments", "exp_id=sweep_smoke
             f"planners={','.join(P7_SWEEP_PLANNERS)}", "runs=1", "budget=20", "num_test_views=16", "warmup_steps=2"]
 
 
-def _launches() -> dict:
-    from activegs_torch.render import composite as cp
-
-    return {k.name: k.launches for k in (*cp.KERNELS, *cp.BF16_KERNELS)}
-
-
-def _zero_launches() -> None:
-    from activegs_torch.render import composite as cp
-
-    for k in (*cp.KERNELS, *cp.BF16_KERNELS):
-        k.launches = 0
-
-
 def bench_phase(dev) -> dict:
     """Path 7 (bench): `scripts.bench.run_bench` at the reference's shape
     (200,000 surfels, 8 views x 10 steps, 512x512), the counters zeroed
@@ -2650,6 +2673,7 @@ def bench_phase(dev) -> dict:
     check(rec["value"] > 0 and math.isfinite(rec["value"]), f"bench: {rec['value']} rays/s")
     check(launches["composite_fwd"] == launches["composite_bwd"] > 0 and launches["composite_stats"] == 0
           and all(launches[k.name] == 0 for k in cp.BF16_KERNELS), f"bench launches {launches}")
+    check_preprocess("bench", launches, trains=True)
 
     cfg, rcfg = gm.MapConfig(capacity=1 << 19, batch_size=bench.BATCH, optimization_steps=10), RasterConfig()
     state, buf = bench.build_scene(RES, P7_BENCH_GAUSSIANS, cfg, device=dev)
@@ -2685,6 +2709,100 @@ def bench_phase(dev) -> dict:
             "train_step_grad_rel_l2": max(errs), "term_stats": term, "launches": launches, "seconds": wall}
 
 
+# bytes a gaussian that the preprocess kernels need to move: the forward
+# reads means, scales, rotations, opacity, colors, confidence (60) and valid
+# (1) and writes params2d (96), radius, depth_z (8) and in_view (1); the
+# backward reads means, scales, rotations (40) and valid (1), which are all
+# its recomputation needs, and the cotangent's rows 0..17 (72), and writes
+# the gradients of the five trained leaves (56)
+PRE_BYTES = {"preprocess_fwd": 61 + 96 + 8 + 1, "preprocess_bwd": 41 + 72 + 56}
+
+
+def preprocess_phase(dev) -> dict:
+    """Path 7 (preprocess): the two preprocess kernels at one subset bucket
+    of the bench scene (`train-bench-200k`'s): the first view of the first
+    timed draw, compacted as `batch_loss` hands it to `preprocess` (row
+    views of the packed subset). The forward kernel is held bitwise against
+    `preprocess_fwd_plain`, the backward bitwise against
+    `preprocess_bwd_plain` and within 1e-5 relative L2 of autograd through
+    the plain forward, with a cotangent on params2d as in training. Each
+    kernel and its plain version is timed by CUDA events (median of
+    TIMED_LAUNCHES), and so are a forward and backward through `preprocess`
+    against the same through the plain forward under autograd (the path
+    before the kernels), with their device busy time and device operations
+    a call; each kernel's bound is its bytes at the data sheet's 3.35 TB/s.
+    Returns the record."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.render import preprocess as pp
+    from activegs_torch.render import renderer
+    from activegs_torch.render.types import PARAM_DIM, Camera, RasterConfig
+    from activegs_torch.scripts import bench
+
+    _zero_launches()
+    cfg, rcfg = gm.MapConfig(capacity=1 << 19, batch_size=bench.BATCH, optimization_steps=10), RasterConfig()
+    state, buf = bench.build_scene(RES, P7_BENCH_GAUSSIANS, cfg, device=dev)
+    sub = gm.slice_state(state, gm.bucket_capacity(P7_BENCH_GAUSSIANS, cfg.capacity))
+    ids, _ = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(bench.BENCH_KEYS[1]))
+    bucket = trainer.pick_subset_bucket(trainer.keyframe_view_stats(sub, buf, ids, cfg, rcfg)[0], sub.capacity)
+    check(bucket is not None, "preprocess: the bench scene picks no subset bucket")
+    batch = kf.decode_frames(buf, ids)
+    cam, shape = Camera(batch[2][0], batch[3][0]), (RES, RES)
+    attrs0 = gm.attrs_of(sub, cfg)
+    subset = renderer.compact_in_view(pp.preprocess(attrs0, cam, shape, rcfg)[3], bucket)[:3]
+    view = renderer.subset_view(renderer.pack_attrs(attrs0), subset)
+    d_p = torch.randn(bucket, PARAM_DIM, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+
+    got, want = pp.preprocess_kernel(view, cam, shape, rcfg), pp.preprocess_fwd_plain(view, cam, shape, rcfg)
+    check(torch.equal(got[3], want[3]) and same_bits(got[:3], want[:3]),
+          "preprocess: the forward kernel is not bitwise its plain version")
+    leaves = {f: getattr(view, f).detach().clone().requires_grad_(True) for f in pp.GRAD_FIELDS[:5]}
+    lview = dataclasses.replace(view, **leaves)
+    want_g = torch.autograd.grad(pp.preprocess_fwd_plain(lview, cam, shape, rcfg)[0], list(leaves.values()), d_p)
+    need = (True,) * 5 + (False,)
+    got_g = pp.preprocess_bwd_kernel(view, cam, shape, rcfg, False, d_p, None, need)[:5]
+    plain_g = pp.preprocess_bwd_plain(view, cam, shape, rcfg, False, d_p, None, need)[:5]
+    errs = [float(torch.linalg.vector_norm(k - w) / torch.linalg.vector_norm(w)) for k, w in zip(got_g, want_g)]
+    check(all(torch.equal(k, p) for k, p in zip(got_g, plain_g)) and max(errs) <= 1e-5,
+          f"preprocess: the backward kernel against its plain version / autograd ({errs})")
+    # the phase's own path, before the timing loops: the view statistics,
+    # the compaction and the two checked calls
+    launches = {k.name: k.launches for k in pp.KERNELS}
+    print(f"preprocess phase: launches {launches}")
+    check(launches["preprocess_bwd"] == 1 and launches["preprocess_fwd"] > 1,
+          f"preprocess phase: launches {launches}")
+
+    def through(fwd):
+        def step():
+            return torch.autograd.grad(fwd(lview, cam, shape, rcfg)[0], list(leaves.values()), d_p)
+        return step
+
+    timed = {
+        "preprocess_fwd": (lambda: pp.preprocess_kernel(view, cam, shape, rcfg),
+                           lambda: pp.preprocess_fwd_plain(view, cam, shape, rcfg)),
+        "preprocess_bwd": (lambda: pp.preprocess_bwd_kernel(view, cam, shape, rcfg, False, d_p, None, need),
+                           lambda: pp.preprocess_bwd_plain(view, cam, shape, rcfg, False, d_p, None, need)),
+    }
+    rec = {"subset_bucket": bucket, "in_view": int(want[3].sum()), "bwd_rel_l2": max(errs), "launches": launches}
+    for name, (kfn, pfn) in timed.items():
+        ms, plain_ms = time_ms(kfn, TIMED_LAUNCHES), time_ms(pfn, TIMED_LAUNCHES)
+        kern = pp.fwd_kernel if name == "preprocess_fwd" else pp.bwd_kernel
+        dev_ms = kernel_device_ms(kfn, TIMED_LAUNCHES, kern, f"preprocess::{name}_kernel")
+        bound = bucket * PRE_BYTES[name] / PEAK_BYTES_PER_S * 1e3
+        rec[name] = {"ms": ms, "device_ms": dev_ms[0][0], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes"}
+        print(f"{name} ({bucket} gaussians, {rec['in_view']} in view): events {ms:.4f} ms, device "
+              f"{dev_ms[0][0]:.4f} ms (plain {plain_ms:.3f} ms), bound {bound:.4f} ms at {PRE_BYTES[name]} bytes a "
+              "gaussian")
+    for name, fwd in (("kernel_path", pp.preprocess), ("plain_path", pp.preprocess_fwd_plain)):
+        step = through(fwd)
+        rec[name] = {"ms": time_ms(step, TIMED_LAUNCHES), **device_busy(step)}
+        print(f"preprocess forward and backward, {name}: events {rec[name]['ms']:.4f} ms, device busy "
+              f"{rec[name]['busy_ms']:.4f} ms, {rec[name]['launched']} device operations launched")
+    print(f"preprocess backward kernel against autograd: rel L2 {max(errs):.3g}")
+    return rec
+
+
 def bench_mission_phase() -> dict:
     """Path 7 (bench_mission): `scripts.bench_mission.main` for
     P7_MISSION_STEPS steps with no prewarm (the earlier paths have built
@@ -2706,6 +2824,7 @@ def bench_mission_phase() -> dict:
           and result["steady_steps"] == list(range(bench_mission.STEADY_FROM, P7_MISSION_STEPS + 1)),
           f"bench_mission result {result}")
     check(all(launches[k.name] > 0 for k in cp.KERNELS), f"bench_mission: a kernel was not launched: {launches}")
+    check_preprocess("bench_mission", launches, trains=True)
     return {"result": result, "launches": launches, "seconds": wall}
 
 
@@ -2736,6 +2855,7 @@ def truncation_phase() -> dict:
               f"validate_truncation {size}: the reference config dropped more than production: {views}")
     wall = time.perf_counter() - t0
     launches = _launches()
+    check_preprocess("validate_truncation", launches, trains=False)
     return {**out, "launches": launches, "seconds": wall}
 
 
@@ -2767,6 +2887,7 @@ def sweep_smoke_phase() -> dict:
                       f"{m['t_mapping_median_rest']} s" for m in summary["missions"])
           + f"; launches {launches} ({wall:.2f} s)")
     check(all(launches[k.name] > 0 for k in cp.KERNELS), f"sweep smoke: a kernel was not launched: {launches}")
+    check_preprocess("sweep smoke", launches, trains=True)
     return {"finals": finals, "missions": summary["missions"], "launches": launches, "seconds": wall}
 
 
@@ -2940,6 +3061,7 @@ def tile_mission_phase() -> dict:
     check(len(losses) == P8_CLI_STEPS and all(math.isfinite(x) for x in losses), f"tile mission losses {losses}")
     check(all(launches[k.name] > 0 for k in cp.KERNELS) and all(launches[k.name] == 0 for k in cp.BF16_KERNELS),
           f"tile mission launches {launches}")
+    check_preprocess("tile mission", launches, trains=True)
     return launches
 
 
@@ -3006,8 +3128,11 @@ def scripts_phase() -> dict:
             if name in ("tile_scan", "kernel_overhead", "profile_bwd", "profile_step", "profile_mission_train",
                         "bench_scaling"):
                 check(launches["composite_fwd"] > 0 and launches["composite_bwd"] > 0, f"{name}: launches {launches}")
+            if name in ("profile_bwd", "profile_step", "profile_mission_train", "bench_scaling"):
+                check_preprocess(name, launches, trains=True)
             if name == "profile_planner":
                 check(launches["composite_fwd"] > 0, f"{name}: launches {launches}")
+                check_preprocess(name, launches, trains=False)
     return out
 
 
@@ -3025,6 +3150,7 @@ def main() -> None:
     try:
         from activegs_torch.render import _build
         from activegs_torch.render import composite as cp
+        from activegs_torch.render import preprocess as pp
         from activegs_torch.scripts import microbench_bf16, microbench_vpu
     except ImportError as e:
         fail(f"the activegs_torch package is not beside this script ({e})")
@@ -3032,7 +3158,7 @@ def main() -> None:
     print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    all_kernels = (*cp.KERNELS, *cp.BF16_KERNELS, *microbench_vpu.KERNELS, *microbench_bf16.KERNELS)
+    all_kernels = (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS, *microbench_vpu.KERNELS, *microbench_bf16.KERNELS)
     logs = _build.build_all(list(dict.fromkeys((k.csrc, k.source) for k in all_kernels)))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(logs)} compiled)")
     for name, log in logs.items():
@@ -3097,6 +3223,8 @@ def main() -> None:
     p6_launches = {part: rec["launches"] for part, rec in p6.items() if "launches" in rec}
     torch.cuda.empty_cache()
     p7 = {"bench": timed("7 bench", bench_phase, dev)}
+    torch.cuda.empty_cache()
+    p7["preprocess"] = timed("7 preprocess", preprocess_phase, dev)
     torch.cuda.empty_cache()
     p7["bench_mission"] = timed("7 bench_mission", bench_mission_phase)
     p7["validate_truncation"] = timed("7 validate_truncation", truncation_phase)
@@ -3191,6 +3319,15 @@ def main() -> None:
             "launches_by_path": {"cli_mission": cli_launches[kern.name], "offline_eval": offline_launches[kern.name],
                                  **{part: n.get(kern.name, 0) for part, n in path_launches.items()}},
         })
+    for kern in pp.KERNELS:
+        rec = p7["preprocess"][kern.name]
+        kernels.append({"name": kern.name, "route": "cuda", "source": "activegs_torch/render/csrc/preprocess.cu",
+                        "replaces": REPLACES[kern.name], "launches": mission_launches[kern.name], **rec,
+                        "library_ms": None,
+                        "launches_by_path": {"mapping": map_launches[kern.name], "mission": mission_launches[kern.name],
+                                             "cli_mission": cli_launches[kern.name],
+                                             "offline_eval": offline_launches[kern.name],
+                                             **{part: n.get(kern.name, 0) for part, n in path_launches.items()}}})
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
     if args.stats_schedule:

@@ -631,14 +631,14 @@ def test_mapping_step_runs_the_kernels(cuda):
     cfg, rcfg = gm.MapConfig(capacity=8192, bilateral_radius=2), tt.RasterConfig(entry_budget_mult=4.0)
     sim = BoxRoomSimulator(resolution=SHAPE, seed=11, device=cuda)
     state, buf = gm.init_state(cfg, device=cuda), kf.init_buffer(8, *SHAPE, device=cuda)
-    for k in cp.KERNELS:
+    for k in (*cp.KERNELS, *pp.KERNELS):
         k.launches = 0
     gen = torch.Generator().manual_seed(0)
     for target in ((5.5, 2.5, 1.2), (5.0, 4.0, 1.0)):
         frame = sim.simulate(geo.look_at((3.0, 2.5, 1.5), target, device=cuda))
         state, buf, st = mapping_step(state, buf, frame, cfg, rcfg, gen)
         assert math.isfinite(st["loss"]) and st["n_gaussians"] > 0
-    assert all(k.launches > 0 for k in cp.KERNELS)
+    assert all(k.launches > 0 for k in (*cp.KERNELS, *pp.KERNELS))
 
 
 @pytest.mark.cuda
@@ -774,14 +774,15 @@ def test_tsdf_integrate_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(out["cuda"]["tsdf"][same], out["cpu"]["tsdf"][same], atol=1e-5, rtol=0)
 
 
-def card_keyframe(cuda):
+def card_keyframe(cuda, capacity=8192):
     """A map spawned from two 64x64 boxroom frames and a buffer of three,
     on the card."""
     from activegs_torch.mapping import gaussians as gm
     from activegs_torch.mapping import keyframes as kf
     from activegs_torch.sim.synthetic import BoxRoomSimulator
 
-    cfg, rcfg = gm.MapConfig(capacity=8192, bilateral_radius=2, batch_size=4), tt.RasterConfig(entry_budget_mult=4.0)
+    cfg = gm.MapConfig(capacity=capacity, bilateral_radius=2, batch_size=4)
+    rcfg = tt.RasterConfig(entry_budget_mult=4.0)
     sim = BoxRoomSimulator(resolution=SHAPE, seed=11, device=cuda)
     state, buf = gm.init_state(cfg, device=cuda), kf.init_buffer(8, *SHAPE, device=cuda)
     for i, target in enumerate(((5.5, 2.5, 1.2), (5.0, 4.0, 1.0), (5.5, 1.5, 1.4))):
@@ -905,3 +906,156 @@ def test_resampled_step_kernel_path_matches_plain_path(cuda):
                                              generator=torch.Generator().manual_seed(3))
     assert math.isfinite(float(loss)) and aux == {"num_dropped": -1, "num_entries": -1}
     assert cp.fwd_kernel.launches >= 3 and cp.bwd_kernel.launches == cp.fwd_kernel.launches
+
+
+# ---------------------------------------------------------------------------
+# the preprocess kernels (csrc/preprocess.cu)
+# ---------------------------------------------------------------------------
+
+
+def preprocess_scene(dev, n=20000, seed=9):
+    """Seeded gaussians before a tilted camera that reach every branch of
+    the preprocess: in view, out of the image, behind `near` and behind the
+    camera, invalid slots, the tan clamps exceeded by large surfels still
+    in view, and scales from 1e-3 to 0.4."""
+    rng = np.random.default_rng(seed)
+    m = n // 8
+    z = np.concatenate([rng.uniform(0.3, 4.0, n - 2 * m), rng.uniform(-1.0, 0.05, m), np.full(m, 1.5)])
+    xy = rng.uniform(-1.2, 1.2, (n, 2)) * np.abs(z)[:, None]
+    xy[-m:, 0] = rng.choice([-1.0, 1.0], m) * rng.uniform(1.6, 3.0, m)
+    scales = np.exp(rng.uniform(np.log(1e-3), np.log(0.4), (n, 3)))
+    scales[-m:] = rng.uniform(0.8, 1.6, (m, 3))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    attrs = tt.GaussianAttrs(
+        means=t(np.concatenate([xy, z[:, None]], 1)), scales=t(scales), rotations=t(q),
+        opacities=t(rng.uniform(0.05, 1.0, n)), colors=t(rng.uniform(0, 1, (n, 3))),
+        confidences=t(rng.uniform(0, 1, n)), valid=torch.as_tensor(rng.uniform(size=n) > 0.1, device=dev),
+    )
+    cam = tt.Camera(geo.look_at((0.1, -0.2, -0.3), (0.0, 0.05, 2.0), device=dev),
+                    geo.intrinsics_from_fov(60.0, 60.0, device=dev))
+    return attrs, cam
+
+
+# each field its own tensor, or row views of one packed (N, 16) array as on
+# the training path (`renderer.subset_view`)
+PRE_LAYOUTS = {"fields": lambda a: a, "packed": lambda a: renderer.unpack_attrs(renderer.pack_attrs(a))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front_only", [False, True], ids=["all", "front"])
+@pytest.mark.parametrize("layout", list(PRE_LAYOUTS))
+def test_preprocess_kernel_matches_plain(cuda, layout, front_only):
+    """The forward kernel against `preprocess_fwd_plain` on the card: every
+    output bitwise (in_view, radius, depth_z and the extents decide the
+    sort and the bins; every other column of params2d too)."""
+    attrs, cam = preprocess_scene(cuda)
+    attrs = PRE_LAYOUTS[layout](attrs)
+    cfg = tt.RasterConfig()
+    n0 = pp.fwd_kernel.launches
+    got = pp.preprocess_kernel(attrs, cam, (96, 128), cfg, front_only)
+    want = pp.preprocess_fwd_plain(attrs, cam, (96, 128), cfg, front_only)
+    torch.cuda.synchronize()
+    assert pp.fwd_kernel.launches == n0 + 1
+    iv = want[3]
+    assert 0 < int(iv.sum()) < attrs.num
+    assert torch.equal(got[3], iv)
+    for name, g, w in (("radius", got[1], want[1]), ("depth_z", got[2], want[2])):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    bits = got[0].view(torch.int32) == want[0].view(torch.int32)
+    assert bool(bits.all()), f"columns not bitwise: {torch.nonzero(~bits.all(0)).flatten().tolist()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front_only", [False, True], ids=["all", "front"])
+@pytest.mark.parametrize("layout", list(PRE_LAYOUTS))
+def test_preprocess_bwd_kernel_matches_autograd(cuda, layout, front_only):
+    """The backward kernel against autograd through the plain forward on the
+    card, each leaf within relative L2 1e-5, with cotangents on params2d
+    and depth_z; and bitwise its own plain version, which runs the same
+    operations in the same order."""
+    attrs, cam = preprocess_scene(cuda)
+    cfg = tt.RasterConfig()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    d_p = torch.randn(attrs.num, tt.PARAM_DIM, device=cuda, generator=g)
+    d_z = torch.randn(attrs.num, device=cuda, generator=g)
+    leaves = {f: getattr(attrs, f).clone().requires_grad_(True) for f in pp.GRAD_FIELDS}
+    lattrs = PRE_LAYOUTS[layout](dataclasses.replace(attrs, **leaves))
+    p2d, _, dz, _ = pp.preprocess_fwd_plain(lattrs, cam, (96, 128), cfg, front_only)
+    want = torch.autograd.grad([p2d, dz], list(leaves.values()), [d_p, d_z])
+    sub = PRE_LAYOUTS[layout](attrs)
+    n0 = pp.bwd_kernel.launches
+    got = pp.preprocess_bwd_kernel(sub, cam, (96, 128), cfg, front_only, d_p, d_z)
+    plain = pp.preprocess_bwd_plain(sub, cam, (96, 128), cfg, front_only, d_p, d_z)
+    torch.cuda.synchronize()
+    assert pp.bwd_kernel.launches == n0 + 1
+    for f, k, p, w in zip(pp.GRAD_FIELDS, got, plain, want):
+        err = float(torch.linalg.vector_norm(k - w) / torch.linalg.vector_norm(w))
+        assert err <= 1e-5, (f, err)
+        assert torch.equal(k, p), f
+    # a leaf not needed is not written
+    assert pp.preprocess_bwd_kernel(sub, cam, (96, 128), cfg, front_only, d_p, None, (True,) + (False,) * 5)[1:] \
+        == (None,) * 5
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_keyframe_matches_plain_path(cuda):
+    """A 10-step `train_keyframe` on a small map on the main path (per-view
+    subsets, frozen bins), with the preprocess kernels against the plain
+    path (autograd through `preprocess_fwd_plain`): the last loss within 4
+    float32 ulps. (Adam's eps of 1e-15 turns gradients that round apart
+    near zero into steps of a whole learning rate, so the parameters are
+    not compared.)"""
+    from unittest import mock
+
+    from activegs_torch.mapping import trainer
+
+    # a capacity of 32768 leaves room for the per-view subsets
+    cfg, rcfg, state, buf = card_keyframe(cuda, capacity=32768)
+    cfg = dataclasses.replace(cfg, optimization_steps=10)
+    views = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(3))
+    max_iv, max_e = trainer.keyframe_view_stats(state, buf, views[0], cfg, rcfg)
+    bucket, budget = trainer.pick_subset_bucket(max_iv, state.capacity), trainer.pick_entry_bucket(max_e)
+    assert bucket is not None
+
+    def keyframe():
+        b = dataclasses.replace(buf, performance=buf.performance.clone())
+        return trainer.train_keyframe(state, b, views, cfg, rcfg, subset_bucket=bucket, entry_budget=budget)
+
+    for k in pp.KERNELS:
+        k.launches = 0
+    got = keyframe()
+    assert pp.fwd_kernel.launches > 0 and pp.bwd_kernel.launches == 10 * len(views[0])
+    with mock.patch.object(pp, "preprocess", pp.preprocess_fwd_plain):
+        want = keyframe()
+    lk, lp = float(got[2]), float(want[2])
+    assert abs(lk - lp) <= 4 * float(np.spacing(np.float32(lp))), (lk, lp)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_makes_no_host_read(cuda):
+    """Under torch's sync debug mode "error" a preprocess on the card, its
+    forward and its backward, makes the host wait for nothing; each runs
+    its kernel once, inside its span."""
+    from activegs_torch import tracing
+
+    attrs, cam = preprocess_scene(cuda, n=4096)
+    leaves = {f: getattr(attrs, f).clone().requires_grad_(True) for f in pp.GRAD_FIELDS}
+    d_p = torch.ones(attrs.num, tt.PARAM_DIM, device=cuda)
+    n0 = [k.launches for k in pp.KERNELS]
+    tracing.clear()
+    torch.cuda.synchronize()
+    with tracing.recording():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pp.preprocess(dataclasses.replace(attrs, **leaves), cam, (96, 128), tt.RasterConfig())
+            grads = torch.autograd.grad(out[0], list(leaves.values()), d_p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(pp.KERNELS, n0)] == [1, 1]
+    names = [r.name for r in tracing.spans()]
+    assert names.count("render.preprocess_kernel") == names.count("render.preprocess_bwd") == 1
+    assert not [n for n in names if n.startswith("sync.")]
+    assert all(torch.isfinite(g).all() for g in grads)

@@ -4,8 +4,8 @@ clock they share with torch.profiler, and the mission timers built on them.
 The two tests marked `cuda` hold the spans against the card: every call of
 the training and post-processing path that makes the host wait for the
 device sits in a `sync.*` span (torch's sync debug mode raises at any other),
-and each compositor kernel's launch lies inside its `render.composite_*`
-span. This file imports no JAX, so on a machine with a card it runs alone:
+and each compositor or preprocess kernel's launch lies inside its
+wrapper's `render.*` span. This file imports no JAX, so on a machine with a card it runs alone:
 
     python -m pytest --noconftest -q tests/test_torch_tracing.py
 """
@@ -230,29 +230,36 @@ def test_every_host_wait_of_training_sits_in_a_sync_span(cuda, fused):
     assert bucket is not None  # the per-view subsets of the main path
 
 
-KERNEL_SPAN = {"fwd_kernel": "render.composite_fwd", "bwd_kernel": "render.composite_bwd",
-               "tile_order_kernel": "render.composite_bwd", "stats_kernel": "render.composite_stats",
-               "tile_rank_kernel": "render.composite_stats"}
+KERNEL_SPAN = {"composite::fwd_kernel": "render.composite_fwd", "composite::bwd_kernel": "render.composite_bwd",
+               "composite::tile_order_kernel": "render.composite_bwd",
+               "composite::stats_kernel": "render.composite_stats",
+               "composite::tile_rank_kernel": "render.composite_stats",
+               "preprocess::preprocess_fwd_kernel": "render.preprocess_kernel",
+               "preprocess::preprocess_bwd_kernel": "render.preprocess_bwd"}
 
 
 @pytest.mark.cuda
 def test_compositor_launches_lie_inside_their_spans(cuda):
     """In a profiled stretch of training and post-processing, each launch of
-    a compositor kernel (the runtime call that the kernel's correlation id
-    names) lies inside a span of its wrapper, `render.composite_*`."""
+    a compositor or preprocess kernel (the runtime call that the kernel's
+    correlation id names) lies inside a span of its wrapper,
+    `render.composite_*`, `render.preprocess_kernel` or
+    `render.preprocess_bwd`."""
     mapper, _ = tiny_mission(cuda, steps=2, res=64, map_cfg=gm.MapConfig(capacity=32768, optimization_steps=2))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _training_calls(mapper)
         torch.cuda.synchronize()
     evs = list(prof.profiler.kineto_results.events())
-    host = {e.correlation_id(): e for e in evs if e.device_type() != torch.autograd.DeviceType.CUDA}
+    # the runtime's launch calls (an operator's host event may carry the same id)
+    host = {e.correlation_id(): e for e in evs
+            if e.device_type() != torch.autograd.DeviceType.CUDA and "Launch" in e.name()}
     spans = {}
     for r in tracing.spans():
         spans.setdefault(r.name, []).append((r.start_ns, r.end_ns))
     seen = {}
     for e in evs:
-        m = re.search(r"composite::(\w+_kernel)\b", e.name())
+        m = re.search(r"\b((?:composite|preprocess)::\w+_kernel)\b", e.name())
         if e.device_type() != torch.autograd.DeviceType.CUDA or m is None:
             continue
         launch = host.get(e.correlation_id())
