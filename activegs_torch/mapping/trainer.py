@@ -19,7 +19,6 @@ import warnings
 import torch
 
 from .. import tracing
-from ..core.image_ops import depth_to_normal
 from ..render import binning as rb
 from ..render import preprocess as rp
 from ..render.renderer import (
@@ -34,7 +33,7 @@ from ..render.renderer import (
 from ..render.types import Camera, RasterConfig, RenderOutput
 from . import gaussians as gm
 from . import keyframes as kf
-from . import losses
+from .view_loss import view_loss
 
 PARAM_FIELDS = ("means", "scales_raw", "rotations_raw", "opacities_raw", "colors")
 _LR = {
@@ -55,23 +54,9 @@ def make_optimizer(params: dict, cfg: gm.MapConfig) -> torch.optim.Adam:
 
 def _view_loss(o, rgb_gt, depth_gt, intrinsic):
     """(loss_v, err_v) for one view: loss_v = rgb + 0.8 depth + 0.1
-    consistency + 0.1 normal-TV, err_v = rgb + depth (the sampler's error),
-    with the pixel terms folded into two reductions."""
-    h, w = rgb_gt.shape[-2:]
-    mask_vis = o.opacity.detach() > 1e-3
-    mask_depth = depth_gt > 0.0
-    rgb_px = torch.sum(losses.l1_masked(o.rgb, rgb_gt, mask_vis), dim=0) / 3.0
-    depth_px = losses.l1_masked(o.depth, depth_gt, mask_depth)[0]
-    d2n = depth_to_normal(o.depth[0], mask_vis[0], intrinsic).permute(2, 0, 1)
-    cons_px = losses.consistency_loss(o.normal[None], d2n[None])[0] * mask_vis[0]
-    tv = losses.normal_tv_loss(o.normal[None], o.depth.detach()[None], mask_depth[None])
-    inv_px = 1.0 / (h * w)
-    loss_v = (
-        torch.sum(rgb_px + losses.W_DEPTH * depth_px + losses.W_CONS * cons_px) * inv_px
-        + losses.W_TV * tv
-    )
-    err_v = torch.sum(rgb_px + depth_px) * inv_px
-    return loss_v, err_v
+    consistency + 0.1 normal-TV, err_v = rgb + depth (the sampler's error);
+    `view_loss.view_loss`, one kernel each way on the card."""
+    return view_loss(o.rgb, o.depth, o.normal, o.opacity, rgb_gt, depth_gt, intrinsic)
 
 
 def batch_loss(

@@ -5,7 +5,8 @@
 Builds the hand-written kernels of the port (the three tile-compositor
 kernels of `activegs_torch/render/csrc/`, each with its bf16 pair-math
 instance exported by the same source, the preprocess kernels beside them,
-and the two elementwise-rate probes
+the view-loss kernels of `activegs_torch/mapping/csrc/`, and the two
+elementwise-rate probes
 of `activegs_torch/scripts/csrc/`; one nvcc per source, all started
 together), then drives eight paths, each with the launch counters zeroed
 just before it and read just after:
@@ -117,7 +118,11 @@ just before it and read just after:
    version (forward bitwise, backward bitwise and within 1e-5 of
    autograd) and timed beside it, and a forward and backward through them
    against the plain path under autograd, with each one's device busy
-   time and device operations; `validate_truncation.main` on that mission's final map
+   time and device operations; the two view-loss kernels
+   (`mapping/csrc/view_loss.cu`) on the bench scene's 512 x 512 render of
+   one view, held against their plain versions (maps bitwise, loss_v and
+   err_v bitwise, backward bitwise and within 1e-6 of autograd) and timed
+   beside them the same way; `validate_truncation.main` on that mission's final map
    and its 8 cameras at 512 x 512 and 1024 x 1024 (the reference config
    must drop no more entries than production on any view); and a sweep
    smoke, `run_sweep.main` on tworoom with the confidence planner, one
@@ -145,7 +150,8 @@ on both stats views, by CUDA events and by device time (`stats in turns,
 kernel's `launches_by_path` adds the parts of paths 6-8. The preprocess
 kernels are counted on every path: each path that renders must launch
 the forward one, each that trains the backward one too, and each that
-does not, never.
+does not, never; each path that trains must launch both view-loss
+kernels, and each that does not, neither.
 
 Paths 1 and 3 print, for the keyframe-5 view and the heaviest candidate,
 the share of (entry, 32-pixel row) pairs that the kernels' warp culls keep
@@ -245,6 +251,9 @@ REPLACES = {
     # no Pallas kernel: the reference leaves its preprocess to XLA's fusion
     "preprocess_fwd": "none (activegs_tpu/render/preprocess.py:23, fused by XLA)",
     "preprocess_bwd": "none (its transpose by XLA)",
+    # nor for the view loss: XLA fuses the reference's loss and its transpose
+    "view_loss_fwd": "none: XLA fused activegs_tpu/mapping/trainer.py::_view_loss",
+    "view_loss_bwd": "none: XLA fused its transpose",
     "microbench_vpu": "scripts/microbench_vpu.py:37",
     "microbench_bf16": "scripts/microbench_bf16.py:30",
 }
@@ -268,11 +277,13 @@ def check(cond: bool, msg: str) -> None:
 
 def _kernels() -> tuple:
     """The renderer's kernels: the compositor's f32 and bf16 instances and
-    the two preprocess kernels, which every path that renders launches."""
+    the two preprocess kernels, which every path that renders launches;
+    and the two view-loss kernels, which every path that trains does."""
+    from activegs_torch.mapping import view_loss as vl
     from activegs_torch.render import composite as cp
     from activegs_torch.render import preprocess as pp
 
-    return (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS)
+    return (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS, *vl.KERNELS)
 
 
 def _launches() -> dict:
@@ -284,13 +295,20 @@ def _zero_launches() -> None:
         k.launches = 0
 
 
-def check_preprocess(path: str, launches: dict, trains: bool) -> None:
+def check_preprocess(path: str, launches: dict, trains: bool, loss: bool | None = None) -> None:
     """A path that renders launches the preprocess forward kernel; one that
     trains launches its backward too (at most once a forward), and one
-    that does not, never."""
+    that does not, never. Where `launches` counts the view-loss kernels
+    (`_launches`), a path that trains on the loss (`loss`, by default
+    `trains`) launches both (at most one backward a forward), and one that
+    does not, neither."""
     fwd, bwd = launches["preprocess_fwd"], launches["preprocess_bwd"]
     check(fwd >= bwd > 0 if trains else fwd > 0 and bwd == 0,
           f"{path}: preprocess kernel launches fwd {fwd} bwd {bwd}")
+    if "view_loss_fwd" in launches:
+        fwd, bwd = launches["view_loss_fwd"], launches["view_loss_bwd"]
+        check(fwd >= bwd > 0 if (trains if loss is None else loss) else fwd == bwd == 0,
+              f"{path}: view-loss kernel launches fwd {fwd} bwd {bwd}")
 
 
 def smi() -> str:
@@ -2803,6 +2821,94 @@ def preprocess_phase(dev) -> dict:
     return rec
 
 
+# bytes a pixel the view-loss kernels must move: the forward reads rgb,
+# normal, rgb_gt (3 floats each), depth, opacity, depth_gt and writes the
+# four maps; the backward reads the same 11 floats and writes 7 gradients
+VL_BYTES = {"view_loss_fwd": 4 * (11 + 4), "view_loss_bwd": 4 * (11 + 7)}
+
+
+def view_loss_phase(dev) -> dict:
+    """Path 7 (view loss): the two view-loss kernels at the bench shape, on
+    the bench scene's render of the first view of the first timed draw
+    (`train-bench-200k`'s) against its frame. The forward kernel's maps are
+    held bitwise against `view_loss_maps_plain` and loss_v, err_v against
+    the plain formula; the backward bitwise against `view_loss_bwd_plain`
+    and within 1e-6 relative L2 of autograd through the plain formula, at
+    the upstream gradient a view of a batch of 8 gets. Each kernel and its
+    plain version is timed by CUDA events (median of TIMED_LAUNCHES), with
+    its device time; and a forward and backward through `view_loss`
+    against the same through the plain formula under autograd (the path
+    before the kernels), with device busy time and device operations a
+    call. Each kernel's bound is its bytes (VL_BYTES a pixel) at the data
+    sheet's 3.35 TB/s. Returns the record."""
+    from activegs_torch.mapping import gaussians as gm
+    from activegs_torch.mapping import keyframes as kf
+    from activegs_torch.mapping import trainer
+    from activegs_torch.mapping import view_loss as vl
+    from activegs_torch.render import renderer
+    from activegs_torch.render.types import Camera, RasterConfig
+    from activegs_torch.scripts import bench
+
+    _zero_launches()
+    cfg, rcfg = gm.MapConfig(capacity=1 << 19, batch_size=bench.BATCH, optimization_steps=10), RasterConfig()
+    state, buf = bench.build_scene(RES, P7_BENCH_GAUSSIANS, cfg, device=dev)
+    sub = gm.slice_state(state, gm.bucket_capacity(P7_BENCH_GAUSSIANS, cfg.capacity))
+    ids, _ = trainer.draw_batch(buf, cfg, torch.Generator().manual_seed(bench.BENCH_KEYS[1]))
+    rgb_gt, depth_gt, exts, intrs = kf.decode_frames(buf, ids)
+    background = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        o, _ = renderer.render_view(gm.attrs_of(sub, cfg), Camera(exts[0], intrs[0]), (RES, RES), rcfg,
+                                    background=background)
+    ins = (o.rgb, o.depth, o.normal, o.opacity, rgb_gt[0], depth_gt[0], intrs[0])
+    g = torch.tensor(1.0 / bench.BATCH, device=dev)
+    kins = vl.kernel_inputs(*ins)
+
+    got, want = vl.view_loss_kernel(*kins), vl.view_loss_maps_plain(*ins)
+    check(same_bits(got, want), "view loss: the forward kernel's maps are not bitwise the plain ones")
+    lk, lp = vl.view_loss(*ins), vl.reduce_maps(*want)
+    check(same_bits(lk, lp), f"view loss: kernel {lk} against plain {lp}")
+    leaves = {k: x.detach().clone().requires_grad_(True) for k, x in zip(("rgb", "depth", "normal"), ins)}
+    lins = (*leaves.values(), *ins[3:])
+    want_g = torch.autograd.grad(vl.reduce_maps(*vl.view_loss_maps_plain(*lins))[0], list(leaves.values()), g)
+    got_g = vl.view_loss_bwd_kernel(*kins, g)
+    plain_g = vl.view_loss_bwd_plain(*ins, g)
+    errs = [float(torch.linalg.vector_norm(k - w) / torch.linalg.vector_norm(w)) for k, w in zip(got_g, want_g)]
+    check(same_bits(got_g, plain_g) and max(errs) <= 1e-6,
+          f"view loss: the backward kernel against its plain version / autograd ({errs})")
+    launches = {k.name: k.launches for k in vl.KERNELS}
+    print(f"view loss phase: launches {launches}")
+    check(launches == {"view_loss_fwd": 2, "view_loss_bwd": 1}, f"view loss phase: launches {launches}")
+
+    def through(loss_fn):
+        def step():
+            return torch.autograd.grad(loss_fn(*lins)[0], list(leaves.values()), g)
+        return step
+
+    timed = {
+        "view_loss_fwd": (lambda: vl.view_loss_kernel(*kins), lambda: vl.view_loss_maps_plain(*ins)),
+        "view_loss_bwd": (lambda: vl.view_loss_bwd_kernel(*kins, g), lambda: vl.view_loss_bwd_plain(*ins, g)),
+    }
+    visible = int((o.opacity > vl.VISIBLE).sum())
+    rec = {"shape": [RES, RES], "visible_px": visible, "bwd_rel_l2": max(errs), "launches": launches,
+           "loss_v": float(lk[0])}
+    for name, (kfn, pfn) in timed.items():
+        ms, plain_ms = time_ms(kfn, TIMED_LAUNCHES), time_ms(pfn, TIMED_LAUNCHES)
+        kern = vl.fwd_kernel if name == "view_loss_fwd" else vl.bwd_kernel
+        dev_ms = kernel_device_ms(kfn, TIMED_LAUNCHES, kern, f"view_loss::{name}_kernel")
+        bound = RES * RES * VL_BYTES[name] / PEAK_BYTES_PER_S * 1e3
+        rec[name] = {"ms": ms, "device_ms": dev_ms[0][0], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes"}
+        print(f"{name} ({RES}x{RES}, {visible} pixels visible): events {ms:.4f} ms, device {dev_ms[0][0]:.4f} ms "
+              f"(plain {plain_ms:.3f} ms), bound {bound:.4f} ms at {VL_BYTES[name]} bytes a pixel")
+    plain_loss = lambda *a: vl.reduce_maps(*vl.view_loss_maps_plain(*a))  # noqa: E731
+    for name, loss_fn in (("kernel_path", vl.view_loss), ("plain_path", plain_loss)):
+        step = through(loss_fn)
+        rec[name] = {"ms": time_ms(step, TIMED_LAUNCHES), **device_busy(step)}
+        print(f"view loss forward and backward, {name}: events {rec[name]['ms']:.4f} ms, device busy "
+              f"{rec[name]['busy_ms']:.4f} ms, {rec[name]['launched']} device operations launched")
+    print(f"view loss backward kernel against autograd: rel L2 {max(errs):.3g}")
+    return rec
+
+
 def bench_mission_phase() -> dict:
     """Path 7 (bench_mission): `scripts.bench_mission.main` for
     P7_MISSION_STEPS steps with no prewarm (the earlier paths have built
@@ -3129,7 +3235,8 @@ def scripts_phase() -> dict:
                         "bench_scaling"):
                 check(launches["composite_fwd"] > 0 and launches["composite_bwd"] > 0, f"{name}: launches {launches}")
             if name in ("profile_bwd", "profile_step", "profile_mission_train", "bench_scaling"):
-                check_preprocess(name, launches, trains=True)
+                # profile_bwd differentiates the renders alone, with no loss
+                check_preprocess(name, launches, trains=True, loss=name != "profile_bwd")
             if name == "profile_planner":
                 check(launches["composite_fwd"] > 0, f"{name}: launches {launches}")
                 check_preprocess(name, launches, trains=False)
@@ -3148,6 +3255,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
     try:
+        from activegs_torch.mapping import view_loss as vl
         from activegs_torch.render import _build
         from activegs_torch.render import composite as cp
         from activegs_torch.render import preprocess as pp
@@ -3158,7 +3266,8 @@ def main() -> None:
     print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    all_kernels = (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS, *microbench_vpu.KERNELS, *microbench_bf16.KERNELS)
+    all_kernels = (*cp.KERNELS, *cp.BF16_KERNELS, *pp.KERNELS, *vl.KERNELS, *microbench_vpu.KERNELS,
+                   *microbench_bf16.KERNELS)
     logs = _build.build_all(list(dict.fromkeys((k.csrc, k.source) for k in all_kernels)))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({len(logs)} compiled)")
     for name, log in logs.items():
@@ -3225,6 +3334,8 @@ def main() -> None:
     p7 = {"bench": timed("7 bench", bench_phase, dev)}
     torch.cuda.empty_cache()
     p7["preprocess"] = timed("7 preprocess", preprocess_phase, dev)
+    torch.cuda.empty_cache()
+    p7["view_loss"] = timed("7 view loss", view_loss_phase, dev)
     torch.cuda.empty_cache()
     p7["bench_mission"] = timed("7 bench_mission", bench_mission_phase)
     p7["validate_truncation"] = timed("7 validate_truncation", truncation_phase)
@@ -3327,6 +3438,14 @@ def main() -> None:
                         "launches_by_path": {"mapping": map_launches[kern.name], "mission": mission_launches[kern.name],
                                              "cli_mission": cli_launches[kern.name],
                                              "offline_eval": offline_launches[kern.name],
+                                             **{part: n.get(kern.name, 0) for part, n in path_launches.items()}}})
+    for kern in vl.KERNELS:
+        rec = p7["view_loss"][kern.name]
+        kernels.append({"name": kern.name, "route": "cuda", "source": "activegs_torch/mapping/csrc/view_loss.cu",
+                        "replaces": REPLACES[kern.name], "launches": mission_launches[kern.name], **rec,
+                        "library_ms": None,
+                        "launches_by_path": {"mapping": map_launches[kern.name], "mission": mission_launches[kern.name],
+                                             "cli_mission": cli_launches[kern.name],
                                              **{part: n.get(kern.name, 0) for part, n in path_launches.items()}}})
     for name, rec in probes.items():
         kernels.append({"name": name, "replaces": REPLACES[name], **rec})
